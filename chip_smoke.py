@@ -2,13 +2,25 @@
 """Smoke run of the PyTorch/CUDA port (``narwhal_tpu_torch``) on one GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card, then drives a
-primary's certificate path at the N=50 committee size: every round's
-signature claims verified in one batch on the ``cuda`` crypto backend,
-then the certificates through ``Consensus(use_kernel=True)`` on the card,
-whose commit sequence must equal the Python Tusk's.  One JSON line per
-phase; the line before the last is the card's name and power limit as
-nvidia-smi reports them, and the last line is
+each kernel against its plain PyTorch version on the card (and the
+verifier's batch split against its single launch), then drives two paths
+at the N=50 committee size, each with the launch counts set to 0 just
+before it and read just after:
+
+- ``commit_step``: the flagship commit step
+  (``narwhal_tpu_torch.commit_step.entry()``, W=64), whose support,
+  committed chain and reach masks must equal the plain twins' and the
+  reference program's values;
+- ``main_path``: a primary's certificate path — every round's signature
+  claims verified in one batch on the ``cuda`` crypto backend, then the
+  certificates through ``Consensus(use_kernel=True)`` on the card, whose
+  commit sequence must equal the Python Tusk's; at every commit
+  opportunity the bool-window kernels are held against the Tusk on the
+  live device window (:class:`LiveWindowCheck`), outside the timings,
+  with its launches counted apart from the path's.
+
+One JSON line per phase; the line before the last is the card's name and
+power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
     python3 chip_smoke.py
@@ -256,6 +268,150 @@ def causal_window(rng, window: int, n: int):
     return exists.astype(np.int32), parent
 
 
+# ------------------------------------------------- the live-window check
+
+
+class LiveWindowCheck:
+    """Holds the bool-window kernels against the Tusk at every commit
+    opportunity of a ``KernelTusk``, on its live device window cast
+    ``> 0``, after the opportunity's own work (so outside its timing):
+
+    - ``leader_chain_scan``'s committed slots are the chain that
+      ``order_leaders`` (``leader_commit_scan``) returned;
+    - ``support_stake`` at the leader's slot is the stake the host's f+1
+      gate counted (``tusk._support``), where the child slot lies in the
+      window;
+    - for each committed leader, ``causal_mask_scan``'s mask is a host BFS
+      over the Tusk's dict DAG restricted to the window's slots, and
+      every certificate ``order_dag`` emits for it inside the window lies
+      in the mask.  ``order_dag`` also skips by each authority's last
+      committed round, so in-mask certificates it does not emit are
+      counted (``in_mask_not_emitted``), not asserted on.
+
+    Opportunities the Tusk answered with its Python walk are skipped.
+    Disagreements are collected in ``failures``.  The node's own path
+    launches none of the three kernels; the check counts its launches in
+    ``launches`` so they can be told apart from the path's."""
+
+    KERNELS = ("leader_chain_scan", "support_stake", "causal_mask_scan")
+
+    def __init__(self, tusk) -> None:
+        import torch
+
+        self.tusk = tusk
+        self.stake = torch.tensor(
+            [tusk.committee.stake(k) for k in tusk._sorted_keys],
+            dtype=torch.int32, device=tusk.device,
+        )
+        self.counts = dict(opportunities=0, skipped_python_walk=0,
+                           chain_checked=0, support_checked=0,
+                           cones_checked=0, emitted_in_window=0,
+                           in_mask_not_emitted=0)
+        self.launches = dict.fromkeys(self.KERNELS, 0)
+        self.failures = []
+        self._masks = {}
+
+    def install(self) -> "LiveWindowCheck":
+        order_leaders, order_dag = self.tusk.order_leaders, self.tusk.order_dag
+
+        def checked_order_leaders(leader):
+            fallbacks = self.tusk.python_fallbacks
+            chain = order_leaders(leader)
+            self.counts["opportunities"] += 1
+            if self.tusk.python_fallbacks != fallbacks:
+                self.counts["skipped_python_walk"] += 1
+            else:
+                self._check_opportunity(leader, chain)
+            return chain
+
+        def checked_order_dag(leader):
+            ordered = order_dag(leader)
+            self._check_emitted(leader, ordered)
+            return ordered
+
+        self.tusk.order_leaders = checked_order_leaders
+        self.tusk.order_dag = checked_order_dag
+        return self
+
+    def _onehot(self, cert):
+        import torch
+
+        out = torch.zeros(self.tusk._n, dtype=torch.bool)
+        out[self.tusk._index[cert.origin]] = True
+        return out.to(self.tusk.device)
+
+    def _host_cone(self, cert, base: int, window: int):
+        """Host BFS from ``cert`` down the dict DAG to the window's base."""
+        import numpy as np
+
+        dag, index = self.tusk.state.dag, self.tusk._index
+        cone = np.zeros((window, self.tusk._n), dtype=bool)
+        level = [cert]
+        for r in range(cert.round, base - 1, -1):
+            for c in level:
+                cone[r - base, index[c.origin]] = True
+            wanted = set()
+            for c in level:
+                wanted.update(c.header.parents)
+            level = [c for d, c in dag.get(r - 1, {}).values() if d in wanted]
+        return cone
+
+    def _check_opportunity(self, leader, chain) -> None:
+        from narwhal_tpu_torch.ops import LAUNCHES
+
+        before = dict(LAUNCHES)
+        self._compare(leader, chain)
+        for name in self.KERNELS:
+            self.launches[name] += LAUNCHES[name] - before[name]
+
+    def _compare(self, leader, chain) -> None:
+        import numpy as np
+
+        from narwhal_tpu_torch.ops import reachability as R
+
+        tusk = self.tusk
+        base, window = tusk._win_base, tusk.max_window
+        parent, exists = tusk._dev_parent > 0, tusk._dev_exists > 0
+        committed, _ = R.leader_chain_scan(parent, exists, *tusk.leader_flags(leader))
+        want = np.zeros(window, dtype=bool)
+        for c in chain[1:]:
+            want[c.round - base] = True
+        self.counts["chain_checked"] += 1
+        if not np.array_equal(committed.cpu().numpy(), want):
+            self.failures.append(("chain", leader.round))
+        slot = leader.round - base
+        if slot + 1 < window:
+            got = int(R.support_stake(parent, exists, self.stake, slot,
+                                      self._onehot(leader)))
+            self.counts["support_checked"] += 1
+            if got != tusk._support.get(leader.round, 0):
+                self.failures.append(("support", leader.round, got,
+                                      tusk._support.get(leader.round, 0)))
+        for c in chain:
+            mask = R.causal_mask_scan(parent, exists, c.round - base,
+                                      self._onehot(c)).cpu().numpy()
+            self.counts["cones_checked"] += 1
+            if not np.array_equal(mask, self._host_cone(c, base, window)):
+                self.failures.append(("cone", c.round))
+            self._masks[bytes(c.digest())] = (base, mask)
+
+    def _check_emitted(self, leader, ordered) -> None:
+        entry = self._masks.pop(bytes(leader.digest()), None)
+        if entry is None:
+            return
+        base, mask = entry
+        index = self.tusk._index
+        emitted = 0
+        for x in ordered:
+            w = x.round - base
+            if 0 <= w < mask.shape[0]:
+                emitted += 1
+                if not mask[w, index[x.origin]]:
+                    self.failures.append(("emitted", leader.round, x.round))
+        self.counts["emitted_in_window"] += emitted
+        self.counts["in_mask_not_emitted"] += int(mask.sum()) - emitted
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -313,20 +469,13 @@ def phase_kernels(dag, keys, device, rng):
                    ctypes.POINTER(ctypes.c_int))(ctypes.byref(regs), ctypes.byref(local_bytes))
     assert rc == 0, f"cudaFuncGetAttributes failed: cudaError {rc}"
     records["ed25519_verify"] = dict(
-        registers_per_thread=regs.value,
-        local_bytes_per_thread=local_bytes.value,
         replaces="narwhal_tpu/ops/ed25519.py:232",
         source="narwhal_tpu_torch/csrc/ed25519_verify.cu",
         mismatches=mism + mism16 + py_mism,
         max_abs_err=max(err, err16, float(py_mism > 0)),
         check_launches=check_launches,
-        checked=dict(b2048=VERIFY_BATCH, b16384=8 * VERIFY_BATCH,
-                     py_sample=len(sample),
-                     corrupted=kind.count("corrupted"),
-                     hostile=sum(k.startswith("hostile") for k in kind)),
         ms=cuda_ms(lambda: E.verify_kernel(*args), 20),
         host_ms_per_call=host_ms(lambda: E.verify_kernel(*args), 20),
-        ms_b16384=cuda_ms(lambda: E.verify_kernel(*tiled), 5),
         plain_ms=plain_ms,
         bound_ms=1000 * max(
             VERIFY_BATCH * (sum(a[0].nbytes for a in prep) + 1) / HBM_BYTES_PER_S,
@@ -334,6 +483,15 @@ def phase_kernels(dag, keys, device, rng):
         ),
         bound_by="operations",
         library_ms=None,
+        extra=dict(
+            ms_b16384=cuda_ms(lambda: E.verify_kernel(*tiled), 5),
+            checked=dict(b2048=VERIFY_BATCH, b16384=8 * VERIFY_BATCH,
+                         py_sample=len(sample),
+                         corrupted=kind.count("corrupted"),
+                         hostile=sum(k.startswith("hostile") for k in kind)),
+            registers_per_thread=regs.value,
+            local_bytes_per_thread=local_bytes.value,
+        ),
     )
 
     # -- the window kernels at W = 64, N = 50, C = 256
@@ -423,12 +581,7 @@ def phase_kernels(dag, keys, device, rng):
     scan_args = None
     for trial in range(4):
         e_np, p_np = causal_window(nrng, W, N)
-        leader = np.zeros((W, N), dtype=bool)
-        is_lead = np.zeros(W, dtype=bool)
-        for w in range(2, W - 1, 2):
-            who = w % N
-            leader[w, who] = bool(e_np[w, who])
-            is_lead[w] = bool(e_np[w, who])
+        leader, is_lead = leader_schedule(e_np)
         anchor_slot = W - 2 - 2 * trial
         anchor = np.zeros(N, dtype=bool)
         anchor[int(np.flatnonzero(e_np[anchor_slot])[0])] = True
@@ -455,7 +608,176 @@ def phase_kernels(dag, keys, device, rng):
         bound_by="bytes",
         committed_in_check=committed_total,
     )
+
+    # -- the bool-window kernels of the commit step and the causal cone,
+    #    at W = 64, N = 50, on fresh random causal windows
+    chain_mism, chain_err, cases, committed_total = 0, 0.0, [], 0
+    before = dict(LAUNCHES)
+    for trial in range(3):
+        e_np, p_np = causal_window(nrng, W, N)
+        e_b, p_b = dev(e_np > 0), dev(p_np > 0)
+        leader, is_lead = leader_schedule(e_np)
+        none_w, none_s = np.zeros_like(leader), np.zeros_like(is_lead)
+        for anchor_slot, lo, isl in ((W - 2, leader, is_lead),
+                                     (W - 3 - 2 * trial, leader, is_lead),
+                                     (W - 2, none_w, none_s),  # no linked leader
+                                     (W, leader, is_lead)):  # outside the window
+            anchor = np.zeros(N, dtype=bool)
+            anchor[int(nrng.integers(N))] = True
+            a = (p_b, e_b, dev(lo), dev(isl), anchor_slot, dev(anchor))
+            (gc, gr), (wc, wr) = R.leader_chain_scan(*a), R.leader_chain_scan_plain(*a)
+            (m1, e1), (m2, e2) = diff(gc, wc), diff(gr, wr)
+            chain_mism += m1 + m2
+            chain_err = max(chain_err, e1, e2)
+            committed_total += int(gc.sum())
+            if not lo.any():
+                assert not bool(gc.any()), "a chain with no leader committed"
+            cases.append((a, gc, gr))
+    chain_launches = LAUNCHES["leader_chain_scan"] - before["leader_chain_scan"]
+    assert committed_total > 0, "the chain scan check committed nothing"
+    chain_args, chain_c, chain_r = cases[0]
+    records["leader_chain_scan"] = dict(
+        replaces="narwhal_tpu/ops/reachability.py:144",
+        source="narwhal_tpu_torch/csrc/reachability.cu",
+        mismatches=chain_mism,
+        max_abs_err=chain_err,
+        check_launches=chain_launches,
+        ms=cuda_ms(lambda: R.leader_chain_scan(*chain_args), 100, prefill=True),
+        host_ms_per_call=host_ms(lambda: R.leader_chain_scan(*chain_args), 100),
+        plain_ms=cuda_ms(lambda: R.leader_chain_scan_plain(*chain_args), 5),
+        library_ms=None,
+        bound_ms=1000 * chain_scan_bytes(chain_c, chain_r, chain_args[2], N)
+        / HBM_BYTES_PER_S,
+        bound_by="bytes",
+        extra=dict(cases=len(cases), committed_in_check=committed_total),
+    )
+
+    cone_mism, cone_err, cone_cases = 0, 0.0, 0
+    before = dict(LAUNCHES)
+    e_np, p_np = causal_window(nrng, W, N)
+    e_b, p_b = dev(e_np > 0), dev(p_np > 0)
+    for start_slot in (W - 1, W - 2, W // 2, 1, 0, W, -1):
+        onehot = np.zeros(N, dtype=bool)
+        if 0 <= start_slot < W:
+            onehot[int(np.flatnonzero(e_np[start_slot])[0])] = True
+        else:
+            onehot[0] = True
+        a = (p_b, e_b, start_slot, dev(onehot))
+        got, want = R.causal_mask_scan(*a), R.causal_mask_scan_plain(*a)
+        m1, e1 = diff(got, want)
+        cone_mism += m1
+        cone_err = max(cone_err, e1)
+        cone_cases += 1
+        if not 0 <= start_slot < W:
+            assert not bool(got.any()), "a cone from outside the window"
+    cone_launches = LAUNCHES["causal_mask_scan"] - before["causal_mask_scan"]
+    cone_args = (p_b, e_b, W - 2, dev(np.eye(N, dtype=bool)[int(np.flatnonzero(e_np[W - 2])[0])]))
+    cone_mask = R.causal_mask_scan(*cone_args)
+    records["causal_mask_scan"] = dict(
+        replaces="narwhal_tpu/ops/reachability.py:230",
+        source="narwhal_tpu_torch/csrc/reachability.cu",
+        mismatches=cone_mism,
+        max_abs_err=cone_err,
+        check_launches=cone_launches,
+        ms=cuda_ms(lambda: R.causal_mask_scan(*cone_args), 100, prefill=True),
+        host_ms_per_call=host_ms(lambda: R.causal_mask_scan(*cone_args), 100),
+        plain_ms=cuda_ms(lambda: R.causal_mask_scan_plain(*cone_args), 5),
+        library_ms=None,
+        bound_ms=1000 * cone_bytes(cone_mask, N) / HBM_BYTES_PER_S,
+        bound_by="bytes",
+        extra=dict(cases=cone_cases, cone_cells=int(cone_mask.sum())),
+    )
+
+    stake_mism, stake_err = 0, 0.0
+    before = dict(LAUNCHES)
+    stake = dev(nrng.integers(1, 100, N).astype(np.int32))
+    for leader_slot in range(-1, W):
+        onehot = np.zeros(N, dtype=bool)
+        onehot[int(nrng.integers(N))] = True
+        a = (p_b, e_b, stake, leader_slot, dev(onehot))
+        got, want = R.support_stake(*a), R.support_stake_plain(*a)
+        m1, e1 = diff(got, want)
+        stake_mism += m1
+        stake_err = max(stake_err, e1)
+    stake_launches = LAUNCHES["support_stake"] - before["support_stake"]
+    stake_args = (p_b, e_b, stake, W - 4, dev(np.eye(N, dtype=bool)[0]))
+    records["support_stake"] = dict(
+        replaces="narwhal_tpu/ops/reachability.py:267",
+        source="narwhal_tpu_torch/csrc/reachability.cu",
+        mismatches=stake_mism,
+        max_abs_err=stake_err,
+        check_launches=stake_launches,
+        ms=cuda_ms(lambda: R.support_stake(*stake_args), 100, prefill=True),
+        host_ms_per_call=host_ms(lambda: R.support_stake(*stake_args), 100),
+        plain_ms=cuda_ms(lambda: R.support_stake_plain(*stake_args), 20),
+        library_ms=None,
+        # One child slot's parent rows and exists row, the stake and the
+        # leader's one-hot read once; the int32 sum written once.
+        bound_ms=1000 * (N * N + N + 4 * N + N + 4) / HBM_BYTES_PER_S,
+        bound_by="bytes",
+        extra=dict(leader_slots=f"-1..{W - 1}"),
+    )
+
+    # -- the verifier's batch split (the reference's NARWHAL_VERIFY_MESH
+    #    path) against the single launch, on the same B = 2048 rows
+    routes = []
+    cards = torch.cuda.device_count()
+    splits = [[device, device]]
+    if cards > 1:
+        splits.append([torch.device("cuda", k) for k in range(cards)])
+    for devices in splits:
+        before = dict(LAUNCHES)
+        split = E.verify_sharded(args, devices)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["ed25519_verify"] - before["ed25519_verify"]
+        assert launches == len(devices), launches
+        m1 = int((split != mask).sum())
+        routes.append(dict(
+            launcher="verify_sharded",
+            replaces="narwhal_tpu/ops/ed25519.py:387",
+            shards=len(devices), cards=len({d.index for d in devices}),
+            mismatches=m1, max_abs_err=float(m1 > 0), check_launches=launches,
+            # Events around the whole call: the shards' launches and the
+            # copies of their masks to the host.
+            ms=cuda_ms(lambda: E.verify_sharded(args, devices), 10),
+            host_ms_per_call=host_ms(lambda: E.verify_sharded(args, devices), 10),
+        ))
+    records["ed25519_verify"]["extra"]["routes"] = routes
     return records
+
+
+def leader_schedule(exists):
+    """Leaders on the even slots 2..W-2, present where the slot's
+    authority w mod N has a certificate."""
+    import numpy as np
+
+    W, N = exists.shape
+    leader = np.zeros((W, N), dtype=bool)
+    is_lead = np.zeros(W, dtype=bool)
+    for w in range(2, W - 1, 2):
+        leader[w, w % N] = bool(exists[w, w % N])
+        is_lead[w] = bool(exists[w, w % N])
+    return leader, is_lead
+
+
+def chain_scan_bytes(committed, reach, leader_onehot, n: int) -> int:
+    """Bytes the chain scan must move on these inputs: the N-byte parent
+    rows of the certificates its frontier holds (step w reads the rows of
+    slot w+1's frontier), exists, the leader one-hots and the anchor read
+    once; committed and reach written once."""
+    W = reach.shape[0]
+    # The frontier after step w: reach[w], cut to the leader where the
+    # step committed one.
+    frontier = reach & (~committed[:, None] | leader_onehot)
+    return int(frontier[1:].sum()) * n + 2 * W * n + W + n + W + W * n
+
+
+def cone_bytes(mask, n: int) -> int:
+    """Bytes the causal-cone scan must move: the parent rows of the cone's
+    certificates above slot 0, exists and the start one-hot read once,
+    the mask written once."""
+    W = mask.shape[0]
+    return int(mask[1:].sum()) * n + W * n + n + W * n
 
 
 async def drive_main_path(committee, signed, unsigned, expected, timings):
@@ -491,6 +813,9 @@ async def drive_main_path(committee, signed, unsigned, expected, timings):
         timings["flush_s"].append(time.perf_counter() - t0)
 
     tusk._flush_pending = timed_flush
+    # The live-window check wraps the timed call, so its work stays out of
+    # the commit-opportunity figures.
+    timings["live_check"] = LiveWindowCheck(tusk).install()
     from narwhal_tpu_torch.ops import reset_launches
 
     committed = []
@@ -533,6 +858,62 @@ async def drive_main_path(committee, signed, unsigned, expected, timings):
     return committed, tusk
 
 
+def phase_commit_step(device):
+    """The flagship commit step (``narwhal_tpu_torch.commit_step.entry``)
+    at N = 50, W = 64: a few steps with the launch counts set to 0 just
+    before and read just after, the outputs against the plain twins on
+    the card and against the reference program's values."""
+    import torch
+
+    from narwhal_tpu_torch import commit_step as CS
+    from narwhal_tpu_torch.ops import LAUNCHES, reset_launches
+    from narwhal_tpu_torch.ops import reachability as R
+
+    step, args = CS.entry()
+    parent, exists, leader_onehot, is_leader_slot, stake, anchor_slot, anchor = args
+    assert parent.device == device, parent.device
+    steps = 3
+    reset_launches()
+    outs = [step(*args) for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = {name: steps if name in ("support_stake", "leader_chain_scan") else 0
+            for name in launches}
+    assert launches == want, launches
+
+    def plain():
+        support = R.support_stake_plain(parent, exists, stake, anchor_slot - 2,
+                                        leader_onehot[anchor_slot - 2])
+        return (support, *R.leader_chain_scan_plain(
+            parent, exists, leader_onehot, is_leader_slot, anchor_slot, anchor))
+
+    p_support, p_committed, p_reach = plain()
+    mism = 0
+    for support, committed, reach in outs:
+        mism += sum(diff(a, b)[0] for a, b in ((support, p_support),
+                                                (committed, p_committed),
+                                                (reach, p_reach)))
+    support, committed, reach = outs[-1]
+    values = (int(support), int(committed.sum()), int(reach.sum()))
+    # The reference program's values on this fixture (seed 0, W = 64,
+    # N = 50), which tests/test_torch_commit_step.py holds on the CPU.
+    assert mism == 0, f"commit step != plain twins: {mism} mismatches"
+    assert values == (28, 26, 2477), values
+    result = dict(
+        phase="commit_step", committee=exists.shape[1], window=exists.shape[0],
+        anchor_slot=anchor_slot, steps=steps, mismatches=mism, tolerance=0,
+        support=values[0], committed=values[1], reach_cells=values[2],
+        launches=launches,
+        launches_per_step={name: launches[name] / steps
+                           for name in ("support_stake", "leader_chain_scan")},
+        ms_per_step=cuda_ms(lambda: step(*args), 100, prefill=True),
+        host_ms_per_call=host_ms(lambda: step(*args), 100),
+        plain_ms_per_step=cuda_ms(plain, 5),
+    )
+    emit(result)
+    return result
+
+
 def phase_main_path(keys, committee, signed, rng):
     from narwhal_tpu_torch.consensus import Tusk
     from narwhal_tpu_torch.crypto import backend as cb
@@ -564,12 +945,20 @@ def phase_main_path(keys, committee, signed, rng):
         {"signed": n_signed, "total": len(want)}, timings,
     ))
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    check = timings["live_check"]
+    # The path's own launches: the live check's are counted apart.
+    launches = {name: n - check.launches.get(name, 0)
+                for name, n in LAUNCHES.items()}
     got_digests = [bytes(c.digest()) for c in committed]
     want_digests = [bytes(c.digest()) for c in want]
     assert got_digests == want_digests, "kernel commit sequence != Python Tusk"
     assert tusk.python_fallbacks == 0, tusk.python_fallbacks
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[name] == 0 for name in check.KERNELS), launches
+    assert all(n > 0 for name, n in launches.items()
+               if name not in check.KERNELS), launches
+    assert all(n > 0 for n in check.launches.values()), check.launches
+    assert check.failures == [], check.failures[:10]
+    assert check.counts["chain_checked"] == len(timings["commit_opportunity_s"]) > 0
     verify_s = timings["verify_s"]
     opp = timings["commit_opportunity_s"]
     result = dict(
@@ -597,6 +986,13 @@ def phase_main_path(keys, committee, signed, rng):
         launches_per_commit_opportunity={
             name: launches[name] / max(1, len(opp))
             for name in ("window_apply", "leader_commit_scan", "window_shift")
+        },
+        # The live-window check, outside the timed figures: opportunities
+        # checked, and the bool-window kernels' launches per opportunity.
+        live_window=check.counts,
+        live_check_launches=check.launches,
+        live_check_launches_per_commit_opportunity={
+            name: n / max(1, len(opp)) for name, n in check.launches.items()
         },
         wall_s=wall,
     )
@@ -644,26 +1040,40 @@ def main() -> int:
          "tolerance": 0, "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "host_ms_per_call": r["host_ms_per_call"],
          "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-         **({"ms_b16384": r["ms_b16384"], "checked": r["checked"],
-             "registers_per_thread": r["registers_per_thread"],
-             "local_bytes_per_thread": r["local_bytes_per_thread"]}
-            if "ms_b16384" in r else {})}
+         "bound_ms": r["bound_ms"], **r.get("extra", {})}
         for name, r in records.items()
     ]})
     bad = {n: r["mismatches"] for n, r in records.items() if r["mismatches"]}
+    bad.update({f"verify_sharded x{r['shards']}": r["mismatches"]
+                for r in records["ed25519_verify"]["extra"]["routes"]
+                if r["mismatches"]})
     if bad:
         print(f"chip_smoke: kernels disagree with their plain versions: {bad}",
               file=sys.stderr)
         return 1
 
+    step = phase_commit_step(device)
     main = phase_main_path(keys, committee, signed, rng)
 
+    # Each kernel's launches on the path that carries it: the flagship
+    # commit step for its two kernels, the main path's live-window check
+    # for the cone scan, the node's main path for the others.
+    paths = {name: ("main_path", main["launches"]) for name in records}
+    paths.update(support_stake=("commit_step", step["launches"]),
+                 leader_chain_scan=("commit_step", step["launches"]),
+                 causal_mask_scan=("main_path_live_check",
+                                   main["live_check_launches"]))
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": main["launches"][name],
+         "replaces": r["replaces"], "launches": paths[name][1][name],
+         "path": paths[name][0],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **({"routes": [
+             {k: v for k, v in route.items() if k != "check_launches"}
+             for route in r["extra"]["routes"]]}
+            if name == "ed25519_verify" else {})}
         for name, r in records.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -40,6 +40,9 @@ LAUNCHES: Dict[str, int] = {
     "window_apply": 0,
     "window_shift": 0,
     "leader_commit_scan": 0,
+    "leader_chain_scan": 0,
+    "causal_mask_scan": 0,
+    "support_stake": 0,
 }
 
 

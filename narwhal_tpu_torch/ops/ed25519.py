@@ -32,6 +32,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.env import env_flag
 from . import (
     check_launch,
     kernel_fn,
@@ -275,11 +276,50 @@ def verify_kernel(a_y, a_sign, a_canon, r_y, r_sign, r_canon, s_windows,
     _load_consts(dev)
     out = torch.empty(B, dtype=torch.bool, device=dev)
     fn = kernel_fn("nt_ed25519_verify", *([_VP] * 10), _I, _VP)
-    rc = fn(ptr(a_y), ptr(a_sign), ptr(a_canon), ptr(r_y), ptr(r_sign),
-            ptr(r_canon), ptr(s_windows), ptr(s_ok), ptr(k_windows), ptr(out),
-            B, ctypes.c_void_p(stream_handle(dev)))
+    # The launch goes to the tensors' card, whichever card is current.
+    with torch.cuda.device(dev):
+        rc = fn(ptr(a_y), ptr(a_sign), ptr(a_canon), ptr(r_y), ptr(r_sign),
+                ptr(r_canon), ptr(s_windows), ptr(s_ok), ptr(k_windows),
+                ptr(out), B, ctypes.c_void_p(stream_handle(dev)))
     check_launch("ed25519_verify", rc)
     return out
+
+
+# ------------------------------------------------------- the batch split
+#
+# The port of the reference's NARWHAL_VERIFY_MESH path (a shard_map of
+# the verifier over a 1-D mesh of every visible device): the verifier is
+# elementwise over the batch, so the split is one equal contiguous shard
+# per card, each one launch of the verifier kernel on its own card.
+
+
+def mesh_devices() -> int:
+    """How many cards a split verify would span: > 1 only when the
+    NARWHAL_VERIFY_MESH flag is on and several CUDA devices are visible."""
+    if not env_flag("NARWHAL_VERIFY_MESH") or not torch.cuda.is_available():
+        return 1
+    return torch.cuda.device_count()
+
+
+def verify_sharded(arrays, devices) -> np.ndarray:
+    """The nine prep arrays (numpy or tensors, B rows) verified as
+    ``len(devices)`` equal contiguous shards, shard k on ``devices[k]``
+    (a device may repeat).  Every shard is launched on its card's current
+    stream before any result is awaited; CPU devices run the plain twin.
+    Returns the bool[B] mask, shards concatenated in order."""
+    shards = len(devices)
+    B = int(arrays[0].shape[0])
+    if shards < 1 or B % shards:
+        raise ValueError(
+            f"verify_sharded: {B} rows do not split into {shards} equal shards"
+        )
+    step = B // shards
+    masks = []
+    for k, device in enumerate(devices):
+        part = to_device([a[k * step : (k + 1) * step] for a in arrays],
+                         resolve_device(device))
+        masks.append(verify_kernel(*part))  # loads the card's constants once
+    return np.concatenate([m.cpu().numpy() for m in masks])
 
 
 # ----------------------------------------------------------- host-side prep
@@ -383,39 +423,58 @@ def prepare_batch(
     )
 
 
-def pad_size(n: int) -> int:
-    """The padded batch: a power of two ≥ 16, as in the reference."""
-    pad = 16
+def pad_size(n: int, floor: int = 16) -> int:
+    """The padded batch: ``floor`` doubled until it holds ``n`` rows, as
+    in the reference (a power of two ≥ 16 on one device)."""
+    pad = floor
     while pad < n:
         pad <<= 1
     return pad
 
 
 def to_device(arrays, device) -> List[torch.Tensor]:
-    """The nine prep arrays as contiguous tensors on ``device``."""
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+    """The nine prep arrays (numpy or tensors) as contiguous tensors on
+    ``device``."""
+    return [
+        (a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)))
+        .to(device).contiguous()
+        for a in arrays
+    ]
 
 
 def verify_batch_arrays(messages, keys, sigs, device=None) -> np.ndarray:
     """Bool mask for a batch of (message, key, signature) triples: host
-    prep, one verifier call on ``device`` (None → the GPU), mask back."""
+    prep, one verifier call on ``device`` (None → the GPU), mask back.
+    With ``device`` None, NARWHAL_VERIFY_MESH on and several cards
+    visible, the padded batch (floor raised to 16 × cards) is split over
+    every card by :func:`verify_sharded`."""
     n = len(messages)
     if n == 0:
         return np.zeros(0, dtype=bool)
+    n_dev = mesh_devices() if device is None else 1
     dev = resolve_device(device)
-    args = to_device(prepare_batch(messages, keys, sigs, pad_size(n)), dev)
-    return verify_kernel(*args).cpu().numpy()[:n]
+    # The floor of 16 × cards makes every pad a multiple of the card count.
+    pad = pad_size(n, floor=16 * n_dev)
+    arrays = prepare_batch(messages, keys, sigs, pad)
+    if n_dev > 1:
+        devices = [torch.device("cuda", k) for k in range(n_dev)]
+        return verify_sharded(arrays, devices)[:n]
+    return verify_kernel(*to_device(arrays, dev)).cpu().numpy()[:n]
 
 
 class CudaBackend:
     """crypto.backend-compatible verification backend (see
     narwhal_tpu_torch/crypto/backend.py) on ``device``.  Construction
     resolves the device and, for the GPU, builds and loads the kernel
-    library — so a broken toolchain fails at backend selection."""
+    library — so a broken toolchain fails at backend selection.  A
+    backend made with ``device`` None verifies as ``verify_batch_arrays``
+    does with no device: on the current card, or split over every card
+    when NARWHAL_VERIFY_MESH is on and several are visible."""
 
     name = "cuda"
 
     def __init__(self, device=None) -> None:
+        self._asked = device  # None lets the mesh flag split a batch
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             _load_consts(self.device)
@@ -437,7 +496,7 @@ class CudaBackend:
     ) -> List[bool]:
         return [
             bool(x)
-            for x in verify_batch_arrays(messages, keys, sigs, self.device)
+            for x in verify_batch_arrays(messages, keys, sigs, self._asked)
         ]
 
     async def averify_batch_mask(
@@ -487,4 +546,4 @@ class CudaBackend:
         msg = bytes(Digest(b"\x05" * 32))
         sig = kp.sign(Digest(msg))
         for n in shapes:
-            verify_batch_arrays([msg] * n, [kp.name] * n, [sig] * n, self.device)
+            verify_batch_arrays([msg] * n, [kp.name] * n, [sig] * n, self._asked)

@@ -1,10 +1,10 @@
-"""Tusk's commit-path window on the card: three hand-written CUDA kernels.
+"""Tusk's DAG window on the card: six hand-written CUDA kernels.
 
-The port of ``narwhal_tpu/ops/reachability.py``.  The window is a pair of
-int32 presence-COUNT tensors that live on ``device`` across calls —
-``exists[W, N]`` (certificate present at slot w, authority n) and
-``parent[W, N, N]`` (cert (w, n) references cert (w-1, m)) — maintained
-and read by three kernels (csrc/reachability.cu):
+The port of ``narwhal_tpu/ops/reachability.py``.  The commit path's
+window is a pair of int32 presence-COUNT tensors that live on ``device``
+across calls — ``exists[W, N]`` (certificate present at slot w, authority
+n) and ``parent[W, N, N]`` (cert (w, n) references cert (w-1, m)) —
+maintained and read by three kernels (csrc/reachability.cu):
 
 - :func:`window_apply` scatter-adds a flush of staged certificates
   (replaces the JAX ``window_apply``);
@@ -14,11 +14,25 @@ and read by three kernels (csrc/reachability.cu):
   launch and returns the W-bool committed bitmap (replaces
   ``leader_commit_scan_counts`` and its body ``_chain_scan``).
 
+Three more take the window as bools, as the JAX programs do:
+
+- :func:`leader_chain_scan`, the same chain (one scan body with
+  :func:`leader_commit_scan` in the CUDA source) that also returns the
+  per-slot reach masks (replaces ``leader_chain_scan``);
+- :func:`causal_mask_scan`, the causal cone of one certificate (replaces
+  ``causal_mask_scan``);
+- :func:`support_stake`, the f+1 support gate's stake sum (replaces
+  ``support_stake``).
+
+The flagship commit step (``narwhal_tpu_torch/commit_step.py``) composes
+the last and the first of these.
+
 Where the JAX programs donate their buffers, the port updates the
 window tensors in place (apply) or writes into a second pair of buffers
 that the caller swaps in (shift).  Each wrapper launches its kernel for a
 CUDA tensor and runs the plain PyTorch twin beside it only for a CPU
 tensor; the twin is what the CPU tests hold against the JAX programs.
+The one-block kernels take N <= 1024 authorities.
 """
 
 from __future__ import annotations
@@ -124,52 +138,52 @@ def window_shift(exists, parent, d: int, out_exists, out_parent):
 # ----------------------------------------------------------- leader_commit_scan
 
 
+def _window_checks(parent, exists, dtype, name):
+    """The checks every one-block window kernel shares: N <= 1024, and
+    ``parent`` [W, N, N] and ``exists`` [W, N] of ``dtype`` on one card.
+    Returns (W, N, device)."""
+    W, N = exists.shape
+    if N > 1024:
+        raise ValueError(f"{name}: N={N} > 1024 (one block)")
+    dev = exists.device
+    require(parent, dtype, (W, N, N), dev, f"{name} parent")
+    require(exists, dtype, (W, N), dev, f"{name} exists")
+    return W, N, dev
+
+
+def _chain_scan_checks(parent, exists, leader_onehot, is_leader_slot,
+                       anchor_onehot, dtype, name):
+    W, N, dev = _window_checks(parent, exists, dtype, name)
+    require(leader_onehot, torch.bool, (W, N), dev, f"{name} leader_onehot")
+    require(is_leader_slot, torch.bool, (W,), dev, f"{name} is_leader_slot")
+    require(anchor_onehot, torch.bool, (N,), dev, f"{name} anchor_onehot")
+    return W, N, dev
+
+
 def leader_commit_scan_plain(parent, exists, leader_onehot, is_leader_slot,
                              anchor_slot: int, anchor_onehot):
-    """Plain twin of :func:`leader_commit_scan`: the JAX ``_chain_scan``
-    step by step, descending over the W slots."""
-    W, N = exists.shape
-    present = exists > 0
-    linked = parent > 0
-    frontier = torch.zeros(N, dtype=torch.bool, device=exists.device)
-    committed = torch.zeros(W, dtype=torch.bool, device=exists.device)
-    for w in range(W - 1, -1, -1):
-        # Step w consumes parent[w+1] (edges slot w+1 → slot w).
-        if w + 1 < W:
-            hit = (frontier[:, None] & linked[w + 1]).any(dim=0)
-        else:
-            hit = torch.zeros_like(frontier)
-        g = hit & present[w]
-        if w == anchor_slot:
-            g = anchor_onehot.clone()
-        lead_here = bool(is_leader_slot[w]) and w < anchor_slot and bool(
-            (g & leader_onehot[w]).any()
-        )
-        committed[w] = lead_here
-        frontier = g & leader_onehot[w] if lead_here else g
+    """Plain twin of :func:`leader_commit_scan`."""
+    committed, _ = leader_chain_scan_plain(
+        parent > 0, exists > 0, leader_onehot, is_leader_slot, anchor_slot,
+        anchor_onehot,
+    )
     return committed
 
 
 def leader_commit_scan(parent, exists, leader_onehot, is_leader_slot,
                        anchor_slot: int, anchor_onehot):
     """The whole linked-leader chain (``order_leaders``) over the count
-    window in ONE launch: one block, one thread per authority, the
-    frontier in shared memory, W steps in a loop.  Returns committed
+    window in ONE launch: one block whose lanes split each step's parent
+    column, the frontier in shared memory, W steps in a loop.  Returns committed
     bool[W] on the window's device."""
     if exists.device.type == "cpu":
         return leader_commit_scan_plain(
             parent, exists, leader_onehot, is_leader_slot, anchor_slot,
             anchor_onehot,
         )
-    W, N = exists.shape
-    if N > 1024:
-        raise ValueError(f"leader_commit_scan: N={N} > 1024 (one block)")
-    dev = exists.device
-    require(parent, torch.int32, (W, N, N), dev, "leader_commit_scan parent")
-    require(exists, torch.int32, (W, N), dev, "leader_commit_scan exists")
-    require(leader_onehot, torch.bool, (W, N), dev, "leader_commit_scan leader_onehot")
-    require(is_leader_slot, torch.bool, (W,), dev, "leader_commit_scan is_leader_slot")
-    require(anchor_onehot, torch.bool, (N,), dev, "leader_commit_scan anchor_onehot")
+    W, N, dev = _chain_scan_checks(parent, exists, leader_onehot,
+                                   is_leader_slot, anchor_onehot, torch.int32,
+                                   "leader_commit_scan")
     committed = torch.empty(W, dtype=torch.bool, device=dev)
     fn = kernel_fn("nt_leader_commit_scan", _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP)
     rc = fn(ptr(parent), ptr(exists), ptr(leader_onehot), ptr(is_leader_slot),
@@ -177,6 +191,143 @@ def leader_commit_scan(parent, exists, leader_onehot, is_leader_slot,
             ctypes.c_void_p(stream_handle(dev)))
     check_launch("leader_commit_scan", rc)
     return committed
+
+
+# ------------------------------------------------------------ leader_chain_scan
+
+
+def leader_chain_scan_plain(parent, exists, leader_onehot, is_leader_slot,
+                            anchor_slot: int, anchor_onehot):
+    """Plain twin of :func:`leader_chain_scan`: the JAX ``_chain_scan``
+    step by step, descending over the W slots, on bool tensors.  Returns
+    (committed bool[W], reach bool[W, N]), where reach[w] is the frontier
+    g at slot w before any leader reset."""
+    W, N = exists.shape
+    frontier = torch.zeros(N, dtype=torch.bool, device=exists.device)
+    committed = torch.zeros(W, dtype=torch.bool, device=exists.device)
+    reach = torch.zeros((W, N), dtype=torch.bool, device=exists.device)
+    for w in range(W - 1, -1, -1):
+        # Step w consumes parent[w+1] (edges slot w+1 → slot w).
+        if w + 1 < W:
+            hit = (frontier[:, None] & parent[w + 1]).any(dim=0)
+        else:
+            hit = torch.zeros_like(frontier)
+        g = hit & exists[w]
+        if w == anchor_slot:
+            g = anchor_onehot.clone()
+        lead_here = bool(is_leader_slot[w]) and w < anchor_slot and bool(
+            (g & leader_onehot[w]).any()
+        )
+        committed[w] = lead_here
+        reach[w] = g
+        frontier = g & leader_onehot[w] if lead_here else g
+    return committed, reach
+
+
+def leader_chain_scan(parent, exists, leader_onehot, is_leader_slot,
+                      anchor_slot: int, anchor_onehot):
+    """The linked-leader chain on a bool window (``parent`` bool[W, N, N],
+    ``exists`` bool[W, N]) in one launch, with the per-slot reach masks.
+    Returns (committed bool[W], reach bool[W, N]) on the window's device;
+    reach[w] is the frontier at slot w before any leader reset, as the
+    JAX ``leader_chain_scan`` returns it.  An ``anchor_slot`` outside
+    [0, W) never matches a slot."""
+    if exists.device.type == "cpu":
+        return leader_chain_scan_plain(
+            parent, exists, leader_onehot, is_leader_slot, anchor_slot,
+            anchor_onehot,
+        )
+    W, N, dev = _chain_scan_checks(parent, exists, leader_onehot,
+                                   is_leader_slot, anchor_onehot, torch.bool,
+                                   "leader_chain_scan")
+    committed = torch.empty(W, dtype=torch.bool, device=dev)
+    reach = torch.empty((W, N), dtype=torch.bool, device=dev)
+    fn = kernel_fn("nt_leader_chain_scan", _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
+                   _I, _I, _VP)
+    rc = fn(ptr(parent), ptr(exists), ptr(leader_onehot), ptr(is_leader_slot),
+            ptr(anchor_onehot), int(anchor_slot), ptr(committed), ptr(reach),
+            W, N, ctypes.c_void_p(stream_handle(dev)))
+    check_launch("leader_chain_scan", rc)
+    return committed, reach
+
+
+# ------------------------------------------------------------- causal_mask_scan
+
+
+def causal_mask_scan_plain(parent, exists, start_slot: int, start_onehot):
+    """Plain twin of :func:`causal_mask_scan`."""
+    W, N = exists.shape
+    frontier = torch.zeros(N, dtype=torch.bool, device=exists.device)
+    mask = torch.zeros((W, N), dtype=torch.bool, device=exists.device)
+    for w in range(W - 1, -1, -1):
+        if w + 1 < W:
+            hit = (frontier[:, None] & parent[w + 1]).any(dim=0)
+        else:
+            hit = torch.zeros_like(frontier)
+        g = hit & exists[w]
+        if w == start_slot:
+            g = g | start_onehot
+        mask[w] = g
+        frontier = g
+    return mask
+
+
+def causal_mask_scan(parent, exists, start_slot: int, start_onehot):
+    """The causal cone of certificate (``start_slot``, ``start_onehot``)
+    on a bool window in one launch: bool[W, N], every certificate
+    reachable through parent links — the set ``order_dag`` flattens.
+    The frontier accumulates and never resets; a ``start_slot`` outside
+    [0, W) gives an empty mask."""
+    if exists.device.type == "cpu":
+        return causal_mask_scan_plain(parent, exists, start_slot, start_onehot)
+    W, N, dev = _window_checks(parent, exists, torch.bool, "causal_mask_scan")
+    require(start_onehot, torch.bool, (N,), dev, "causal_mask_scan start_onehot")
+    mask = torch.empty((W, N), dtype=torch.bool, device=dev)
+    fn = kernel_fn("nt_causal_mask_scan", _VP, _VP, _I, _VP, _VP, _I, _I, _VP)
+    rc = fn(ptr(parent), ptr(exists), int(start_slot), ptr(start_onehot),
+            ptr(mask), W, N, ctypes.c_void_p(stream_handle(dev)))
+    check_launch("causal_mask_scan", rc)
+    return mask
+
+
+# ---------------------------------------------------------------- support_stake
+
+
+def _support_slot(leader_slot: int, window: int) -> int:
+    """The child slot the JAX ``support_stake`` reads for ``leader_slot``:
+    its dynamic index ``leader_slot + 1`` counts from the end once when
+    negative and is then clamped into [0, W) (JAX does not raise on an
+    index out of range)."""
+    s = leader_slot + 1
+    if s < 0:
+        s += window
+    return min(max(s, 0), window - 1)
+
+
+def support_stake_plain(parent, exists, stake, leader_slot: int, leader_onehot):
+    """Plain twin of :func:`support_stake`."""
+    s = _support_slot(leader_slot, exists.shape[0])
+    votes = (parent[s] & leader_onehot[None, :]).any(dim=1) & exists[s]
+    return torch.where(votes, stake, torch.zeros_like(stake)).sum(dtype=torch.int32)
+
+
+def support_stake(parent, exists, stake, leader_slot: int, leader_onehot):
+    """Stake of the slot ``leader_slot + 1`` certificates that exist and
+    cite the leader (``leader_onehot`` bool[N]) — the f+1 support gate —
+    in one launch.  Returns a 0-d int32 tensor on the window's device,
+    with no host synchronisation."""
+    if exists.device.type == "cpu":
+        return support_stake_plain(parent, exists, stake, leader_slot, leader_onehot)
+    W, N, dev = _window_checks(parent, exists, torch.bool, "support_stake")
+    require(stake, torch.int32, (N,), dev, "support_stake stake")
+    require(leader_onehot, torch.bool, (N,), dev, "support_stake leader_onehot")
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    fn = kernel_fn("nt_support_stake", _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _VP)
+    rc = fn(ptr(parent), ptr(exists), ptr(stake), int(leader_slot),
+            ptr(leader_onehot), ptr(out), W, N,
+            ctypes.c_void_p(stream_handle(dev)))
+    check_launch("support_stake", rc)
+    return out
 
 
 # -------------------------------------------------------------------- KernelTusk
@@ -415,21 +566,14 @@ class KernelTusk(Tusk):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def order_leaders(self, leader) -> List:
+    def leader_flags(self, leader):
+        """The scan's leader inputs for the commit opportunity at
+        ``leader``, on the window's device, from one packed bool transfer:
+        (leader_onehot bool[W, n], is_leader_slot bool[W], anchor_slot,
+        anchor_onehot bool[n]).  Slot w holds round ``_win_base + w``."""
         state = self.state
-        n = self._n
-        base = max(0, state.last_committed_round)
-        span = leader.round - base + 1
-        window = self.max_window
-        if span > window or base != self._win_base:
-            self.python_fallbacks += 1
-            _m_fallbacks.inc()
-            return super().order_leaders(leader)
-
-        self._flush_pending()
-
-        # One packed bool host buffer → one transfer: [leader_onehot (W×n)
-        # | is_leader_slot (W) | anchor_onehot (n)].
+        n, window, base = self._n, self.max_window, self._win_base
+        # [leader_onehot (W×n) | is_leader_slot (W) | anchor_onehot (n)]
         flags = np.zeros(window * n + window + n, dtype=bool)
         leader_onehot = flags[: window * n].reshape(window, n)
         is_leader_slot = flags[window * n : window * n + window]
@@ -440,14 +584,28 @@ class KernelTusk(Tusk):
                 is_leader_slot[r - base] = True
         flags[window * n + window + self._index[leader.origin]] = True
         dev_flags = torch.from_numpy(flags).to(self.device)
-        # The ONLY device→host transfer on the commit path: W bools.
-        committed = leader_commit_scan(
-            self._dev_parent,
-            self._dev_exists,
+        return (
             dev_flags[: window * n].view(window, n),
             dev_flags[window * n : window * n + window],
             leader.round - base,
             dev_flags[window * n + window :],
+        )
+
+    def order_leaders(self, leader) -> List:
+        state = self.state
+        base = max(0, state.last_committed_round)
+        span = leader.round - base + 1
+        window = self.max_window
+        if span > window or base != self._win_base:
+            self.python_fallbacks += 1
+            _m_fallbacks.inc()
+            return super().order_leaders(leader)
+
+        self._flush_pending()
+
+        # The ONLY device→host transfer on the commit path: W bools.
+        committed = leader_commit_scan(
+            self._dev_parent, self._dev_exists, *self.leader_flags(leader)
         ).cpu().numpy()
 
         # Newest-first chain, exactly as the Python order_leaders returns it.

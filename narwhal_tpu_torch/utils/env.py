@@ -112,6 +112,14 @@ _VARS = [
         "fall back to the cpu backend — an explicit choice, never a "
         "silent downgrade mid-burst.",
     ),
+    EnvVar(
+        "NARWHAL_VERIFY_MESH", "flag", False,
+        "EXPERIMENTAL: split the batched verify across every visible "
+        "CUDA device (one equal shard of the padded batch per card, each "
+        "launched on its card before any is awaited) so crypto "
+        "throughput scales with cards; single-card hosts run the "
+        "single-launch kernel.",
+    ),
 ]
 
 REGISTRY: Dict[str, EnvVar] = {v.name: v for v in _VARS}

@@ -67,6 +67,7 @@ def no_card():
 
 
 def test_entry_points_raise_without_a_card(no_card):
+    from narwhal_tpu_torch.commit_step import entry
     from narwhal_tpu_torch.consensus import Consensus
     from narwhal_tpu_torch.convert import window_from_numpy
     from narwhal_tpu_torch.crypto import backend as cb
@@ -89,6 +90,13 @@ def test_entry_points_raise_without_a_card(no_card):
                   use_kernel=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         window_from_numpy([[0]], [[[0]]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    arrays = E.prepare_batch([bytes(32)], [bytes(32)], [bytes(64)], 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.verify_sharded(arrays, ["cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.verify_sharded(arrays, ["cuda:0", "cuda:1"])
     with pytest.raises(RuntimeError, match="failed to build or load"):
         cb.set_backend("cuda", strict=True)
     assert cb.get_backend().name == "cpu"
