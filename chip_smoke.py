@@ -57,9 +57,12 @@ SEED = 20261017
 # the table's 67 TFLOP/s float32) × 132 SMs × 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MADS_PER_S = 64 * 132 * 1.98e9
-# One 64×64→128-bit limb product of the verifier costs four 32-bit
-# multiply-adds; a field multiply is 25 limb products (csrc/field25519.cuh).
-MADS_PER_FIELD_MUL = 25 * 4
+# The verifier's field (csrc/field25519.cuh) has 10 limbs of 26/25 bits
+# (radix 2^25.5), so a limb product is one 32×32→64-bit multiply-add: a
+# general multiply takes 10 × 10 of them, a square 55 (each cross
+# product once, doubled).
+MADS_PER_FIELD_MUL = 10 * 10
+MADS_PER_FIELD_SQ = 55
 # Spin-kernel cycles per enqueued call when timing launch-bound kernels:
 # ~100 µs at 1.98 GHz, above one wrapper call's host cost.
 SPIN_CYCLES_PER_CALL = 200_000
@@ -468,6 +471,9 @@ def phase_kernels(dag, keys, device, rng):
     rc = kernel_fn("nt_ed25519_verify_attributes", ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_int))(ctypes.byref(regs), ctypes.byref(local_bytes))
     assert rc == 0, f"cudaFuncGetAttributes failed: cudaError {rc}"
+    # The design keeps every table on chip: no local memory at all.
+    assert local_bytes.value == 0, f"verify kernel uses local memory: {local_bytes.value}"
+    launch = {b: verify_launch_shape(b) for b in (VERIFY_BATCH, 8 * VERIFY_BATCH)}
     records["ed25519_verify"] = dict(
         replaces="narwhal_tpu/ops/ed25519.py:232",
         source="narwhal_tpu_torch/csrc/ed25519_verify.cu",
@@ -479,7 +485,10 @@ def phase_kernels(dag, keys, device, rng):
         plain_ms=plain_ms,
         bound_ms=1000 * max(
             VERIFY_BATCH * (sum(a[0].nbytes for a in prep) + 1) / HBM_BYTES_PER_S,
-            VERIFY_BATCH * E.FIELD_MULS_PER_VERIFY * MADS_PER_FIELD_MUL / INT32_MADS_PER_S,
+            VERIFY_BATCH * ((E.FIELD_MULS_PER_VERIFY - E.FIELD_SQS_PER_VERIFY)
+                            * MADS_PER_FIELD_MUL
+                            + E.FIELD_SQS_PER_VERIFY * MADS_PER_FIELD_SQ)
+            / INT32_MADS_PER_S,
         ),
         bound_by="operations",
         library_ms=None,
@@ -491,6 +500,8 @@ def phase_kernels(dag, keys, device, rng):
                          hostile=sum(k.startswith("hostile") for k in kind)),
             registers_per_thread=regs.value,
             local_bytes_per_thread=local_bytes.value,
+            launch_b2048=launch[VERIFY_BATCH],
+            grid_b16384=launch[8 * VERIFY_BATCH]["grid"],
         ),
     )
 
@@ -744,6 +755,21 @@ def phase_kernels(dag, keys, device, rng):
         ))
     records["ed25519_verify"]["extra"]["routes"] = routes
     return records
+
+
+def verify_launch_shape(batch: int) -> dict:
+    """The verify kernel's launch for ``batch`` signatures: grid, block,
+    static shared memory per block, and blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from narwhal_tpu_torch.ops import kernel_fn
+
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = kernel_fn("nt_ed25519_verify_launch", ctypes.c_int,
+                   *[ctypes.POINTER(ctypes.c_int)] * 4)(
+        batch, *[ctypes.byref(o) for o in out])
+    assert rc == 0, f"nt_ed25519_verify_launch failed: cudaError {rc}"
+    return dict(zip(("grid", "block", "shared_bytes_per_block", "blocks_per_sm"),
+                    (o.value for o in out)))
 
 
 def leader_schedule(exists):
@@ -1072,7 +1098,10 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          **({"routes": [
              {k: v for k, v in route.items() if k != "check_launches"}
-             for route in r["extra"]["routes"]]}
+             for route in r["extra"]["routes"]],
+             **{k: r["extra"][k] for k in (
+                 "ms_b16384", "registers_per_thread", "local_bytes_per_thread",
+                 "launch_b2048")}}
             if name == "ed25519_verify" else {})}
         for name, r in records.items()
     ]})

@@ -5,11 +5,11 @@ The port of ``narwhal_tpu/ops/ed25519.py``.  The reference's per-round
 crypto hot loop is `Signature::verify_batch` (crypto/src/lib.rs:206-219):
 2f+1 ed25519 verifications per certificate × N certificates per round.
 Here one batch is one launch of a hand-written CUDA kernel
-(csrc/ed25519_verify.cu, one thread per signature, field elements as 5
-limbs of 51 bits) that replaces the JAX program ``_verify_kernel``; beside
-it, :func:`verify_plain` is the JAX algorithm in plain PyTorch (32 limbs
-of 8 bits, ops/field25519.py), which the wrapper runs only for tensors on
-the CPU.
+(csrc/ed25519_verify.cu: four threads per signature, field elements as
+10 limbs of 26 and 25 bits) that replaces the JAX program
+``_verify_kernel``; beside it, :func:`verify_plain` is the JAX algorithm
+in plain PyTorch (32 limbs of 8 bits, ops/field25519.py), which the
+wrapper runs only for tensors on the CPU.
 
 Verification semantics (strict, a superset of RFC 8032 rejections):
 reject S ≥ L, non-canonical y (y ≥ p), encodings with no valid x or with
@@ -49,12 +49,17 @@ L_ORDER = (1 << 252) + 27742317777372353535851937790883648493
 D_INT = (-121665 * pow(121666, P - 2, P)) % P
 SQRT_M1_INT = pow(2, (P - 1) // 4, P)
 
-# Field multiplies (mul or square) one signature costs, counted from the
-# code — the same in the plain version and the CUDA kernel, which share
-# their formulas: two decompressions (275 each: 262 in pow_p58), two
-# small-order checks (3 doublings of 8), the -A table (15 adds of 9), the
-# ladder (64 × (4 doublings + 2 adds)) and the final projective compare.
+# Field multiplies (mul or square) one signature costs in the JAX
+# algorithm, counted from the plain version's code; the verifier's bound
+# in PERF.md counts these: two decompressions (275 each: 262 in pow_p58),
+# two small-order checks (3 doublings of 8), the -A table (15 adds of 9),
+# the ladder (64 × (4 doublings + 2 adds)) and the final projective
+# compare.
 FIELD_MULS_PER_VERIFY = 2 * 275 + 2 * 3 * 8 + 15 * 9 + 64 * (4 * 8 + 2 * 9) + 4
+# Of those, the squares, which cost fewer limb products than a general
+# multiply: 255 in each decompression (251 in pow_p58), 4 in each
+# doubling of the small-order checks and of the ladder.
+FIELD_SQS_PER_VERIFY = 2 * 255 + 2 * 3 * 4 + 64 * 4 * 4
 
 # --------------------------------------------------------------- point ops
 # A point is a tuple (X, Y, Z, T) of int32[..., 32] limbs with x = X/Z,
@@ -218,18 +223,29 @@ def verify_plain(a_y, a_sign, a_canon, r_y, r_sign, r_canon, s_windows,
 # ----------------------------------------------------------- CUDA kernel
 
 
-def _limbs51(x: int) -> List[int]:
-    return [(x >> (51 * i)) & ((1 << 51) - 1) for i in range(5)]
+# The kernel's field element (csrc/field25519.cuh): 10 uint32 limbs of 26
+# and 25 bits in turn (radix 2^25.5).
+KERNEL_LIMB_BITS = (26, 25) * 5
+
+
+def kernel_limbs(x: int) -> List[int]:
+    """``x`` (< 2^255) as the kernel's 10 limbs, low limb first."""
+    out, off = [], 0
+    for w in KERNEL_LIMB_BITS:
+        out.append((x >> off) & ((1 << w) - 1))
+        off += w
+    return out
 
 
 def cuda_consts() -> np.ndarray:
-    """``nt::Ed25519Consts`` (csrc/field25519.cuh) as uint64 words: d, 2d,
-    sqrt(-1), then the base table j·B (X, Y, Z, T) for j = 0..15."""
-    words = _limbs51(D_INT) + _limbs51((2 * D_INT) % P) + _limbs51(SQRT_M1_INT)
-    for row in _B_TABLE_INTS:
-        for c in row:
-            words += _limbs51(c)
-    return np.array(words, dtype=np.uint64)
+    """``nt::Ed25519Consts`` (csrc/field25519.cuh) as uint32 words: d, 2d,
+    sqrt(-1), then the base table j·B for j = 0..15 in the kernel's
+    cached form, one coordinate per lane: y − x, y + x, 2d·x·y, 2 (Z = 1)."""
+    words = kernel_limbs(D_INT) + kernel_limbs((2 * D_INT) % P) + kernel_limbs(SQRT_M1_INT)
+    for x, y, _, t in _B_TABLE_INTS:
+        for c in ((y - x) % P, (y + x) % P, 2 * D_INT * t % P, 2):
+            words += kernel_limbs(c)
+    return np.array(words, dtype=np.uint32)
 
 
 _consts_loaded: set = set()
@@ -255,7 +271,13 @@ def _load_consts(device: torch.device) -> None:
 def verify_kernel(a_y, a_sign, a_canon, r_y, r_sign, r_canon, s_windows,
                   s_ok, k_windows) -> torch.Tensor:
     """The batched verifier on the inputs' device: the CUDA kernel for
-    CUDA tensors (one launch), the plain version for CPU tensors."""
+    CUDA tensors (one launch), the plain version for CPU tensors.
+
+    The k windows must hold a k < L, as ``prepare_batch`` makes them: the
+    kernel recodes them into signed digits, which needs k's top window,
+    plus the carry into it, below 8 (a k < L has a top window of at most
+    1).  For a larger k the kernel's answer may differ from the plain
+    version's."""
     if a_y.device.type == "cpu":
         return verify_plain(a_y, a_sign, a_canon, r_y, r_sign, r_canon,
                             s_windows, s_ok, k_windows)

@@ -155,19 +155,27 @@ def test_plain_verifier_matches_jax_kernel_on_hostile_vectors():
 
 
 def test_op_count_is_what_the_plain_verifier_runs(monkeypatch):
-    """FIELD_MULS_PER_VERIFY (the bound's op count) is counted, not
-    guessed: it equals the field multiplies one plain verify call runs."""
-    calls = []
-    real = TF.mul
+    """FIELD_MULS_PER_VERIFY and FIELD_SQS_PER_VERIFY (the bound's op
+    counts) are counted, not guessed: they equal the field multiplies, and
+    the squares among them, that one plain verify call runs."""
+    calls = {"mul": 0, "square": 0}
+    real_mul, real_square = TF.mul, TF.square
 
-    def counting(a, b):
-        calls.append(1)
-        return real(a, b)
+    def counting_mul(a, b):
+        calls["mul"] += 1
+        return real_mul(a, b)
 
-    monkeypatch.setattr(TF, "mul", counting)
+    def counting_square(a):
+        calls["square"] += 1
+        return real_square(a)
+
+    monkeypatch.setattr(TF, "mul", counting_mul)
+    monkeypatch.setattr(TF, "square", counting_square)
     args = TE.to_device(TE.prepare_batch([], [], [], 16), "cpu")
     TE.verify_plain(*args)
-    assert len(calls) == TE.FIELD_MULS_PER_VERIFY
+    # A square is a mul of the plain field, so the muls count both.
+    assert calls["mul"] == TE.FIELD_MULS_PER_VERIFY
+    assert calls["square"] == TE.FIELD_SQS_PER_VERIFY
 
 
 def test_cuda_backend_on_cpu_runs_off_the_event_loop():
