@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``narwhal_tpu_torch``) on one GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card (and the
+each kernel against its plain PyTorch version on the card (the window
+scans also with rows of several words and in chunks of slots, and the
 verifier's batch split against its single launch), then drives two paths
 at the N=50 committee size, each with the launch counts set to 0 just
 before it and read just after:
@@ -699,6 +700,25 @@ def phase_kernels(dag, keys, device, rng):
         extra=dict(cases=cone_cases, cone_cells=int(cone_mask.sum())),
     )
 
+    # -- the three scans' launch and cycles at the main path's shape, and
+    #    the scans at rows of several 32-bit words and in chunks of slots
+    timed_scans = dict(
+        leader_commit_scan=lambda: R.leader_commit_scan(*scan_args),
+        leader_chain_scan=lambda: R.leader_chain_scan(*chain_args),
+        causal_mask_scan=lambda: R.causal_mask_scan(*cone_args),
+    )
+    for name, shapes in scan_shape_checks(nrng, dev).items():
+        rec = records[name]
+        rec["mismatches"] += sum(x["mismatches"] for x in shapes)
+        extra = rec.setdefault("extra", {})
+        extra["launch_w64_n50"] = scan_launch(name, W, N)
+        extra["cycles_w64_n50"] = scan_cycles(timed_scans[name])
+        extra["shapes"] = shapes
+        # One N for each row width the launch instantiates (1 to 32 words).
+        extra["registers_by_n"] = {
+            n: scan_launch(name, W, n)["registers_per_thread"]
+            for n in (1, 33, 65, 129, 257, 513)}
+
     stake_mism, stake_err = 0, 0.0
     before = dict(LAUNCHES)
     stake = dev(nrng.integers(1, 100, N).astype(np.int32))
@@ -770,6 +790,94 @@ def verify_launch_shape(batch: int) -> dict:
     assert rc == 0, f"nt_ed25519_verify_launch failed: cudaError {rc}"
     return dict(zip(("grid", "block", "shared_bytes_per_block", "blocks_per_sm"),
                     (o.value for o in out)))
+
+
+SCAN_KERNELS = ("leader_commit_scan", "leader_chain_scan", "causal_mask_scan")
+# Rows of 3 and 7 words of 32 bits, and a window whose slots fill a
+# block's shared memory one at a time (csrc/window_bits.cuh's chunks).
+SCAN_SHAPES = ((64, 65), (64, 200), (8, 1024))
+
+
+def scan_launch(name: str, W: int, N: int) -> dict:
+    """A scan's launch at (W, N) (``nt_window_scan_attributes``):
+    registers, local and static shared bytes per thread, block size,
+    dynamic shared bytes per block, slots per chunk and blocks (one
+    cluster)."""
+    from narwhal_tpu_torch.ops import kernel_fn
+
+    out = (ctypes.c_int * 7)()
+    rc = kernel_fn("nt_window_scan_attributes", ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_int))(
+        SCAN_KERNELS.index(name), W, N, out)
+    assert rc == 0, f"nt_window_scan_attributes failed: cudaError {rc}"
+    launch = dict(zip(("registers_per_thread", "local_bytes_per_thread",
+                       "static_shared_bytes", "block", "dynamic_shared_bytes",
+                       "slots_per_chunk", "blocks"), out))
+    # The design keeps the frontier and the rows in registers.
+    assert launch["local_bytes_per_thread"] == 0, (name, W, N, launch)
+    return launch
+
+
+def scan_cycles(fn) -> dict:
+    """Where one scan's time goes (``nt_window_scan_cycles``): SM clock
+    cycles of the pack (to the barrier that ends it), the scan, the
+    whole, and the chunks, from one launch of ``fn`` after a warm-up."""
+    import torch
+
+    from narwhal_tpu_torch.ops import kernel_fn
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * 4)()
+    rc = kernel_fn("nt_window_scan_cycles", ctypes.POINTER(ctypes.c_ulonglong))(out)
+    assert rc == 0, f"nt_window_scan_cycles failed: cudaError {rc}"
+    return dict(zip(("pack", "scan", "whole", "chunks"), out))
+
+
+def scan_shape_checks(nrng, dev) -> dict:
+    """The three scans against their plain versions at SCAN_SHAPES (counts
+    up to 3 in the int32 window), from an anchor (start) near the top, in
+    the middle and outside the window.  Returns per scan one record a
+    shape: mismatches, the time of one call, and the launch."""
+    import numpy as np
+
+    from narwhal_tpu_torch.ops import reachability as R
+
+    out = {name: [] for name in SCAN_KERNELS}
+    for W, N in SCAN_SHAPES:
+        e_np, p_np = causal_window(nrng, W, N)
+        p_np *= nrng.integers(1, 4, p_np.shape, dtype=np.int32)
+        leader, is_lead = leader_schedule(e_np)
+        pc, ec, pb, eb = dev(p_np), dev(e_np), dev(p_np > 0), dev(e_np > 0)
+        mism = dict.fromkeys(SCAN_KERNELS, 0)
+        committed, cone_cells = 0, 0
+        timed = {}
+        for slot in (W - 2, W // 2, W):
+            onehot = np.zeros(N, dtype=bool)
+            onehot[int(np.flatnonzero(e_np[min(slot, W - 1)])[0])] = True
+            a = (dev(leader), dev(is_lead), slot, dev(onehot))
+            mism["leader_commit_scan"] += diff(R.leader_commit_scan(pc, ec, *a),
+                                               R.leader_commit_scan_plain(pc, ec, *a))[0]
+            (gc, gr), (wc, wr) = R.leader_chain_scan(pb, eb, *a), R.leader_chain_scan_plain(pb, eb, *a)
+            mism["leader_chain_scan"] += diff(gc, wc)[0] + diff(gr, wr)[0]
+            got = R.causal_mask_scan(pb, eb, slot, a[3])
+            mism["causal_mask_scan"] += diff(got, R.causal_mask_scan_plain(pb, eb, slot, a[3]))[0]
+            committed += int(gc.sum())
+            cone_cells += int(got.sum())
+            if slot == W - 2:
+                timed = dict(
+                    leader_commit_scan=lambda a=a: R.leader_commit_scan(pc, ec, *a),
+                    leader_chain_scan=lambda a=a: R.leader_chain_scan(pb, eb, *a),
+                    causal_mask_scan=lambda a=a: R.causal_mask_scan(pb, eb, a[2], a[3]),
+                )
+        for name in SCAN_KERNELS:
+            out[name].append(dict(
+                window=W, committee=N, mismatches=mism[name],
+                ms=cuda_ms(timed[name], 20, prefill=True),
+                committed=committed, cone_cells=cone_cells,
+                **scan_launch(name, W, N)))
+    return out
 
 
 def leader_schedule(exists):
@@ -1102,7 +1210,10 @@ def main() -> int:
              **{k: r["extra"][k] for k in (
                  "ms_b16384", "registers_per_thread", "local_bytes_per_thread",
                  "launch_b2048")}}
-            if name == "ed25519_verify" else {})}
+            if name == "ed25519_verify" else {}),
+         **({k: r["extra"][k] for k in ("launch_w64_n50", "cycles_w64_n50", "shapes",
+                                        "registers_by_n")}
+            if name in SCAN_KERNELS else {})}
         for name, r in records.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

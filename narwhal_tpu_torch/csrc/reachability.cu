@@ -18,19 +18,22 @@
 // whole parent window is 640 KB (160 KB as bools), so each kernel moves at
 // most ~1.3 MB, far below what a launch latency's worth of bandwidth
 // carries.  The apply, shift and support kernels are bound by launch
-// latency; the three scans by their W dependent steps, each waiting on a
-// memory round trip and the block's barriers.  The design answers: the
-// launch count (one launch per flush chunk, one per shift, one for the
-// support gate, one for a whole W-step scan, whose steps loop inside a
-// single block instead of one launch per step), and inside the scans one
-// round trip per step (each step's column of parent loads is spread over
-// the whole block; see mark_hits).  The one-block kernels take N <= 1024.
+// latency; the three scans by the latency of their W dependent steps.  The
+// design answers: the launch count (one launch per flush chunk, one per
+// shift, one for the support gate, one for a whole W-step scan, whose
+// steps loop inside the kernel instead of one launch per step), and
+// inside the scans a step with no memory round trip and no block barrier:
+// a cluster of blocks packs the window into bits in shared memory first,
+// then one warp steps the scan on them (csrc/window_bits.cuh).  The
+// kernels take N <= 1024.
 //
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns the cudaError_t of the launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "window_bits.cuh"
 
 namespace {
 
@@ -82,137 +85,45 @@ __global__ void window_shift_kernel(const int32_t* __restrict__ exists,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ bool present(T v) {
-  return static_cast<int32_t>(v) > 0;
+// The three scans, one body (csrc/window_bits.cuh): T is int32_t for the
+// count window (leader_commit_scan) and uint8_t for the bool window of the
+// flagship commit step (leader_chain_scan) and the causal cone
+// (causal_mask_scan, kCone: the start is ORed in and the frontier only
+// accumulates).  NW is the number of 32-bit words of a row, rounded up to
+// a power of two; the launch picks it from N.  All warps pack a chunk of
+// slots into shared memory, then warp 0 steps it.  The block is 512
+// threads up to NW = 16 and 256 at 32, so that warp 0's frontier and row
+// words (2 * NW registers and more) fit the registers a thread may have
+// at that block size and nothing spills to local memory.
+__host__ __device__ constexpr int scan_block(int nw) {
+  return nw <= 16 ? 512 : 256;
 }
 
-// The two scans share one block layout: lane (m, k) is thread k * Npad + m,
-// with Npad = N rounded up to a warp and K = blockDim.x / Npad lanes per
-// authority m.  Shared memory holds the frontier and the step's hits, Npad
-// bytes each.
-struct ScanLanes {
-  int m, k, K, npad;
-  __device__ ScanLanes(int N) {
-    npad = (N + 31) / 32 * 32;
-    m = threadIdx.x % npad;
-    k = threadIdx.x / npad;
-    K = blockDim.x / npad;
-  }
-};
+//
+// The pack is spread over a cluster of kClusterBlocks blocks on as many
+// SMs: one SM alone pulls the int32 window from L2 too slowly (on an H100
+// the pack then took as long as the 64 steps), so every block packs its
+// share of the groups straight into the first block's shared memory
+// (distributed shared memory), and the first block's warp 0 steps the
+// scan.  The cluster barrier takes the place of the block barrier.
+constexpr int kClusterBlocks = 8;
 
-// One step's parent hits: lane (m, k) ORs frontier[n] && up[n][m] > 0 over
-// its share of n (n = k, k + K, ...) and marks hits[m].  With K lanes per
-// column each thread issues a few independent loads and 32 warps keep the
-// rest in flight, so a step waits on about one memory round trip instead
-// of one per frontier member.
-template <typename T>
-__device__ __forceinline__ void mark_hits(const T* __restrict__ up,
-                                          const unsigned char* frontier,
-                                          unsigned char* hits,
-                                          const ScanLanes& l, int N) {
-  if (l.m >= N) return;
-  bool hit = false;
-  for (int n0 = l.k; n0 < N; n0 += 4 * l.K) {
-    T v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + j * l.K;
-      v[j] = n < N ? up[(int64_t)n * N + l.m] : T(0);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + j * l.K;
-      hit |= n < N && frontier[n] && present(v[j]);
-    }
-  }
-  if (hit) hits[l.m] = 1;  // every writer writes 1: no atomic needed
-}
+// The last scan's cycles (window_scan): pack, scan, whole, chunks.
+__device__ uint64_t scan_cycles[4];
 
-// The whole linked-leader chain in one block.  T is int32_t for the count
-// window (leader_commit_scan) and bool for the flagship commit step
-// (leader_chain_scan): one scan body for both.  The frontier (over slot
-// w+1's authorities) sits in shared memory; each of the W descending steps:
-//   hit[m]  = OR_n frontier[n] && parent[w+1][n][m] > 0   (none at w = W-1)
-//   g[m]    = hit[m] && exists[w][m] > 0, overridden by anchor_onehot at
-//             w == anchor_slot
-//   reach[w][m] = g[m]                 (only when reach is not null)
-//   lead    = is_leader_slot[w] && w < anchor_slot && OR_m (g[m] && leader[w][m])
-//   frontier = lead ? g && leader[w] : g ;  committed[w] = lead
-// exactly the rules of the JAX _chain_scan, whose reach output is g, the
-// frontier before the leader reset.  Lane k = 0 owns authority m.
-template <typename T>
-__global__ void chain_scan_kernel(const T* __restrict__ parent,
-                                  const T* __restrict__ exists,
-                                  const bool* __restrict__ leader_onehot,
-                                  const bool* __restrict__ is_leader_slot,
-                                  const bool* __restrict__ anchor_onehot,
-                                  int anchor_slot, bool* __restrict__ committed,
-                                  bool* __restrict__ reach, int W, int N) {
-  extern __shared__ unsigned char smem[];  // frontier | hits
-  const ScanLanes l(N);
-  unsigned char* frontier = smem;
-  unsigned char* hits = smem + l.npad;
-  const bool owner = l.k == 0 && l.m < N;
-  for (int i = threadIdx.x; i < 2 * l.npad; i += blockDim.x) smem[i] = 0;
-  const bool anchor_m = owner && anchor_onehot[l.m];
-  __syncthreads();
-  for (int w = W - 1; w >= 0; --w) {
-    // The owner's loads do not depend on the frontier: they go out first.
-    bool present_m = false, leader_m = false;
-    if (owner) {
-      present_m = present(exists[(int64_t)w * N + l.m]);
-      leader_m = leader_onehot[(int64_t)w * N + l.m];
-    }
-    const bool slot_leads = is_leader_slot[w] && w < anchor_slot;
-    if (w + 1 < W) mark_hits(parent + (int64_t)(w + 1) * N * N, frontier, hits, l, N);
-    __syncthreads();
-    bool g = false;
-    if (owner) {
-      g = w == anchor_slot ? anchor_m : hits[l.m] && present_m;
-      hits[l.m] = 0;
-      if (reach != nullptr) reach[(int64_t)w * N + l.m] = g;
-    }
-    const bool mine = g && leader_m;
-    const bool any_leader = __syncthreads_or(mine);
-    const bool lead = slot_leads && any_leader;
-    if (owner) frontier[l.m] = lead ? mine : g;
-    if (threadIdx.x == 0) committed[w] = lead;
-    __syncthreads();
-  }
-}
-
-// The causal cone of one certificate, in the chain scan's block layout.
-// Unlike the chain scan the frontier only accumulates: at every step
-//   g[m] = (OR_n frontier[n] && parent[w+1][n][m]) && exists[w][m]
-//          | (w == start_slot && start_onehot[m])
-// and mask[w][m] = g[m].  A start_slot outside [0, W) never matches, so
-// the mask is then all false, as in the JAX program.
-__global__ void causal_mask_kernel(const bool* __restrict__ parent,
-                                   const bool* __restrict__ exists,
-                                   int start_slot,
-                                   const bool* __restrict__ start_onehot,
-                                   bool* __restrict__ mask, int W, int N) {
-  extern __shared__ unsigned char smem[];  // frontier | hits
-  const ScanLanes l(N);
-  unsigned char* frontier = smem;
-  unsigned char* hits = smem + l.npad;
-  const bool owner = l.k == 0 && l.m < N;
-  for (int i = threadIdx.x; i < 2 * l.npad; i += blockDim.x) smem[i] = 0;
-  const bool start_m = owner && start_onehot[l.m];
-  __syncthreads();
-  for (int w = W - 1; w >= 0; --w) {
-    const bool present_m = owner && exists[(int64_t)w * N + l.m];
-    if (w + 1 < W) mark_hits(parent + (int64_t)(w + 1) * N * N, frontier, hits, l, N);
-    __syncthreads();  // every lane has read the old frontier
-    if (owner) {
-      const bool g = (hits[l.m] && present_m) || (w == start_slot && start_m);
-      hits[l.m] = 0;
-      mask[(int64_t)w * N + l.m] = g;
-      frontier[l.m] = g;
-    }
-    __syncthreads();
-  }
+template <typename T, int NW, bool kCone>
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(scan_block(NW), 1)
+    window_scan_kernel(ntw::ScanArgs<T> a, int S) {
+  extern __shared__ uint32_t scan_smem[];
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int warps = (int)(blockDim.x >> 5);
+  const ntw::WarpGroup g{(int)(threadIdx.x & 31)};
+  const int rank = (int)cluster.block_rank();
+  ntw::window_scan<T, NW, kCone>(
+      g, rank * warps + (int)(threadIdx.x >> 5), kClusterBlocks * warps, a, S,
+      scan_smem, cluster.map_shared_rank(scan_smem, 0),
+      rank == 0 && threadIdx.x == 0 ? scan_cycles : nullptr);
 }
 
 // The f+1 support gate: the stake of the certificates at slot s+1 (s =
@@ -278,29 +189,63 @@ extern "C" int nt_window_shift(const void* exists, const void* parent,
   return (int)cudaGetLastError();
 }
 
-// One block for a scan: npad threads per lane row, as many rows as fit in
-// 1024 threads; the frontier and the hits in 2 * npad bytes of shared memory.
-static void scan_launch_shape(int N, int* block, int* smem) {
-  const int npad = (N + 31) / 32 * 32;
-  *block = npad * (1024 / npad);
-  *smem = 2 * npad;
+static int smem_optin_bytes(int* bytes) {
+  int dev;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)rc;
 }
 
-template <typename T>
-static int launch_chain_scan(const void* parent, const void* exists,
-                             const void* leader_onehot,
-                             const void* is_leader_slot,
-                             const void* anchor_onehot, int anchor_slot,
-                             void* committed, void* reach, int W, int N,
-                             void* stream) {
-  if (N < 1 || N > 1024) return (int)cudaErrorInvalidValue;
-  int block, smem;
-  scan_launch_shape(N, &block, &smem);
-  chain_scan_kernel<T><<<1, block, smem, (cudaStream_t)stream>>>(
-      (const T*)parent, (const T*)exists, (const bool*)leader_onehot,
-      (const bool*)is_leader_slot, (const bool*)anchor_onehot, anchor_slot,
-      (bool*)committed, (bool*)reach, W, N);
+// A scan is one cluster of kClusterBlocks blocks of scan_block(NW)
+// threads over chunks of as many slots as fit in the card's shared
+// memory, with the bytes set by cudaFuncSetAttribute above the 48 KB a
+// launch gets without it.  Launches the scan, or with `attrs` non-null
+// only fills attrs[0..6]:
+// registers, local bytes and static shared bytes per thread
+// (cudaFuncGetAttributes), block size, dynamic shared bytes per block,
+// slots per chunk, blocks (one cluster).
+template <typename T, int NW, bool kCone>
+static int launch_scan_nw(const ntw::ScanArgs<T>& a, cudaStream_t stream,
+                          int* attrs) {
+  const auto kernel = window_scan_kernel<T, NW, kCone>;
+  int limit;
+  int rc = smem_optin_bytes(&limit);
+  if (rc != 0) return rc;
+  const int block = scan_block(NW);
+  const int slots = ntw::chunk_slots(a.W, a.N, NW, limit);
+  const int64_t smem = 4 * ntw::smem_words(slots, a.N, NW);
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  if (attrs != nullptr) {
+    cudaFuncAttributes fa;
+    rc = (int)cudaFuncGetAttributes(&fa, kernel);
+    if (rc != 0) return rc;
+    const int out[7] = {fa.numRegs, (int)fa.localSizeBytes, (int)fa.sharedSizeBytes,
+                        block, (int)smem, slots, kClusterBlocks};
+    for (int i = 0; i < 7; ++i) attrs[i] = out[i];
+    return 0;
+  }
+  if (smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+    if (rc != 0) return rc;
+  }
+  kernel<<<kClusterBlocks, block, (size_t)smem, stream>>>(a, slots);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kCone>
+static int launch_scan(const ntw::ScanArgs<T>& a, void* stream, int* attrs) {
+  if (a.N < 1 || a.N > 1024 || a.W < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (ntw::nw_class(a.N)) {
+    case 1: return launch_scan_nw<T, 1, kCone>(a, st, attrs);
+    case 2: return launch_scan_nw<T, 2, kCone>(a, st, attrs);
+    case 4: return launch_scan_nw<T, 4, kCone>(a, st, attrs);
+    case 8: return launch_scan_nw<T, 8, kCone>(a, st, attrs);
+    case 16: return launch_scan_nw<T, 16, kCone>(a, st, attrs);
+    default: return launch_scan_nw<T, 32, kCone>(a, st, attrs);
+  }
 }
 
 extern "C" int nt_leader_commit_scan(const void* parent, const void* exists,
@@ -309,9 +254,11 @@ extern "C" int nt_leader_commit_scan(const void* parent, const void* exists,
                                      const void* anchor_onehot, int anchor_slot,
                                      void* committed, int W, int N,
                                      void* stream) {
-  return launch_chain_scan<int32_t>(parent, exists, leader_onehot,
-                                    is_leader_slot, anchor_onehot, anchor_slot,
-                                    committed, nullptr, W, N, stream);
+  const ntw::ScanArgs<int32_t> a{
+      (const int32_t*)parent, (const int32_t*)exists, (const uint8_t*)leader_onehot,
+      (const uint8_t*)is_leader_slot, (const uint8_t*)anchor_onehot, anchor_slot,
+      (uint8_t*)committed, nullptr, W, N};
+  return launch_scan<int32_t, false>(a, stream, nullptr);
 }
 
 extern "C" int nt_leader_chain_scan(const void* parent, const void* exists,
@@ -320,21 +267,44 @@ extern "C" int nt_leader_chain_scan(const void* parent, const void* exists,
                                     const void* anchor_onehot, int anchor_slot,
                                     void* committed, void* reach, int W, int N,
                                     void* stream) {
-  return launch_chain_scan<bool>(parent, exists, leader_onehot,
-                                 is_leader_slot, anchor_onehot, anchor_slot,
-                                 committed, reach, W, N, stream);
+  const ntw::ScanArgs<uint8_t> a{
+      (const uint8_t*)parent, (const uint8_t*)exists, (const uint8_t*)leader_onehot,
+      (const uint8_t*)is_leader_slot, (const uint8_t*)anchor_onehot, anchor_slot,
+      (uint8_t*)committed, (uint8_t*)reach, W, N};
+  return launch_scan<uint8_t, false>(a, stream, nullptr);
 }
 
 extern "C" int nt_causal_mask_scan(const void* parent, const void* exists,
                                    int start_slot, const void* start_onehot,
                                    void* mask, int W, int N, void* stream) {
-  if (N < 1 || N > 1024) return (int)cudaErrorInvalidValue;
-  int block, smem;
-  scan_launch_shape(N, &block, &smem);
-  causal_mask_kernel<<<1, block, smem, (cudaStream_t)stream>>>(
-      (const bool*)parent, (const bool*)exists, start_slot,
-      (const bool*)start_onehot, (bool*)mask, W, N);
-  return (int)cudaGetLastError();
+  const ntw::ScanArgs<uint8_t> a{
+      (const uint8_t*)parent, (const uint8_t*)exists, nullptr, nullptr,
+      (const uint8_t*)start_onehot, start_slot, nullptr, (uint8_t*)mask, W, N};
+  return launch_scan<uint8_t, true>(a, stream, nullptr);
+}
+
+// The cycles of the last scan launched, once it has finished (the caller
+// synchronizes): out[0..3] = pack (up to the barrier that ends it), scan,
+// whole, chunks, in the clock cycles of the SM of the cluster's first
+// block.  A diagnostic: concurrent scans overwrite each other's.
+extern "C" int nt_window_scan_cycles(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, scan_cycles, 4 * sizeof(uint64_t));
+}
+
+// The launch of scan `which` (0 leader_commit_scan, 1 leader_chain_scan,
+// 2 causal_mask_scan) at (W, N), without launching: out[0..6] as
+// launch_scan_nw fills them.
+extern "C" int nt_window_scan_attributes(int which, int W, int N, int* out) {
+  ntw::ScanArgs<int32_t> c{};
+  ntw::ScanArgs<uint8_t> b{};
+  c.W = b.W = W;
+  c.N = b.N = N;
+  switch (which) {
+    case 0: return launch_scan<int32_t, false>(c, nullptr, out);
+    case 1: return launch_scan<uint8_t, false>(b, nullptr, out);
+    case 2: return launch_scan<uint8_t, true>(b, nullptr, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int nt_support_stake(const void* parent, const void* exists,

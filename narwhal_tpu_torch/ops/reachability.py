@@ -32,7 +32,15 @@ window tensors in place (apply) or writes into a second pair of buffers
 that the caller swaps in (shift).  Each wrapper launches its kernel for a
 CUDA tensor and runs the plain PyTorch twin beside it only for a CPU
 tensor; the twin is what the CPU tests hold against the JAX programs.
-The one-block kernels take N <= 1024 authorities.
+The window kernels take N <= 1024 authorities.
+
+The three scans share one kernel body (``csrc/window_bits.cuh``): a
+cluster of eight blocks packs the window into bits in the first block's
+shared memory, then one warp steps the W slots on those bits, a step
+being a few shared loads, one warp OR reduction per 32-bit word and some
+ANDs, with no block barrier and no global load inside it.  A window
+larger than shared memory is scanned in chunks of slots, the frontier
+carried across them.
 """
 
 from __future__ import annotations
@@ -139,12 +147,12 @@ def window_shift(exists, parent, d: int, out_exists, out_parent):
 
 
 def _window_checks(parent, exists, dtype, name):
-    """The checks every one-block window kernel shares: N <= 1024, and
+    """The checks every window kernel shares: N <= 1024, and
     ``parent`` [W, N, N] and ``exists`` [W, N] of ``dtype`` on one card.
     Returns (W, N, device)."""
     W, N = exists.shape
     if N > 1024:
-        raise ValueError(f"{name}: N={N} > 1024 (one block)")
+        raise ValueError(f"{name}: N={N} > 1024")
     dev = exists.device
     require(parent, dtype, (W, N, N), dev, f"{name} parent")
     require(exists, dtype, (W, N), dev, f"{name} exists")
@@ -173,9 +181,10 @@ def leader_commit_scan_plain(parent, exists, leader_onehot, is_leader_slot,
 def leader_commit_scan(parent, exists, leader_onehot, is_leader_slot,
                        anchor_slot: int, anchor_onehot):
     """The whole linked-leader chain (``order_leaders``) over the count
-    window in ONE launch: one block whose lanes split each step's parent
-    column, the frontier in shared memory, W steps in a loop.  Returns committed
-    bool[W] on the window's device."""
+    window in ONE launch: a cluster of blocks packs the window's presence
+    bits into shared memory, then one warp steps the W slots with the
+    frontier in its registers.  Returns committed bool[W] on the window's
+    device."""
     if exists.device.type == "cpu":
         return leader_commit_scan_plain(
             parent, exists, leader_onehot, is_leader_slot, anchor_slot,
