@@ -506,86 +506,19 @@ def phase_kernels(dag, keys, device, rng):
         ),
     )
 
-    # -- the window kernels at W = 64, N = 50, C = 256
+    # -- the window kernels at W = 64, N = 50
     nrng = np.random.default_rng(SEED)
     W, N = 64, N_COMMITTEE
-    C = 256
-    exists_np, parent_np = causal_window(nrng, W, N)
-    ins_w = nrng.integers(0, W + 1, C).astype(np.int32)  # W: padding
-    ins_i = nrng.integers(0, N, C).astype(np.int32)
-    row_w = nrng.integers(0, W + 1, C).astype(np.int32)
-    row_c = nrng.integers(0, N, C).astype(np.int32)
-    row_v = (nrng.random((C, N)) < 0.7).astype(np.int32)
-    row_w[1], row_c[1] = row_w[0] % W, row_c[0]  # one cell hit twice
-    row_w[0] = row_w[1]
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    flush = [dev(a) for a in (ins_w, ins_i, row_w, row_c, row_v)]
-    ke, kp = dev(exists_np), dev(parent_np)
-    pe, pp = dev(exists_np), dev(parent_np)
-    before = dict(LAUNCHES)
-    R.window_apply(ke, kp, *flush)
-    R.window_apply_plain(pe, pp, *flush)
-    torch.cuda.synchronize()
-    (m1, e1), (m2, e2) = diff(ke, pe), diff(kp, pp)
-    records["window_apply"] = dict(
-        mismatches=m1 + m2, max_abs_err=max(e1, e2),
-        check_launches=LAUNCHES["window_apply"] - before["window_apply"],
-    )
-    te, tp = dev(exists_np), dev(parent_np)
-    valid_rows = int(((row_w >= 0) & (row_w < W)).sum())
-    valid_ins = int(((ins_w >= 0) & (ins_w < W)).sum())
-    keep = (flush[2] < W)
-    rw_l, rc_l, rv_k = flush[2][keep].long(), flush[3][keep].long(), flush[4][keep]
-    iw_keep = flush[0] < W
-    iw_l, ii_l = flush[0][iw_keep].long(), flush[1][iw_keep].long()
-    ones = torch.ones_like(iw_l, dtype=torch.int32)
-
-    def library_apply():
-        te.index_put_((iw_l, ii_l), ones, accumulate=True)
-        tp.index_put_((rw_l, rc_l), rv_k, accumulate=True)
-
-    records["window_apply"].update(
-        replaces="narwhal_tpu/ops/reachability.py:163",
-        source="narwhal_tpu_torch/csrc/reachability.cu",
-        ms=cuda_ms(lambda: R.window_apply(te, tp, *flush), 100, prefill=True),
-        host_ms_per_call=host_ms(lambda: R.window_apply(te, tp, *flush), 100),
-        plain_ms=cuda_ms(lambda: R.window_apply_plain(te, tp, *flush), 20),
-        library_ms=cuda_ms(library_apply, 100, prefill=True),
-        # Index vectors and rows read once; touched cells read and written.
-        bound_ms=1000 * (4 * (4 * C + C * N) + 8 * (valid_rows * N + valid_ins))
-        / HBM_BYTES_PER_S,
-        bound_by="bytes",
-    )
-
-    shift_mism, shift_err = 0, 0.0
-    before = dict(LAUNCHES)
-    se, sp = dev(exists_np), dev(parent_np)
-    oe, op_ = torch.empty_like(se), torch.empty_like(sp)
-    qe, qp = torch.empty_like(se), torch.empty_like(sp)
-    for d in (1, 2, 5, W - 1, W):
-        R.window_shift(se, sp, d, oe, op_)
-        R.window_shift_plain(se, sp, d, qe, qp)
-        torch.cuda.synchronize()
-        (m1, e1), (m2, e2) = diff(oe, qe), diff(op_, qp)
-        shift_mism += m1 + m2
-        shift_err = max(shift_err, e1, e2)
-    shift_launches = LAUNCHES["window_shift"] - before["window_shift"]
-    records["window_shift"] = dict(
-        replaces="narwhal_tpu/ops/reachability.py:187",
-        source="narwhal_tpu_torch/csrc/reachability.cu",
-        mismatches=shift_mism,
-        max_abs_err=shift_err,
-        check_launches=shift_launches,
-        ms=cuda_ms(lambda: R.window_shift(se, sp, 2, oe, op_), 100, prefill=True),
-        host_ms_per_call=host_ms(lambda: R.window_shift(se, sp, 2, oe, op_), 100),
-        plain_ms=cuda_ms(lambda: R.window_shift_plain(se, sp, 2, qe, qp), 20),
-        library_ms=None,
-        bound_ms=1000 * 2 * 4 * (W * N * N + W * N) / HBM_BYTES_PER_S,
-        bound_by="bytes",
-    )
+    # The standalone apply's inputs first, drawn as before the ring so that
+    # the scans below see the same windows as the parent's smoke.
+    exists_np, parent_np = causal_window(nrng, W, N)
+    flush_np = random_flush(nrng, W, N, 256)
+    records["window_update"] = window_update_record(
+        np.random.default_rng(SEED + 1), dev, exists_np, parent_np, flush_np)
 
     scan_mism, scan_err = 0, 0.0
     before = dict(LAUNCHES)
@@ -777,6 +710,178 @@ def phase_kernels(dag, keys, device, rng):
     return records
 
 
+# The ring's launch is checked at the main path's shape and at the scans'
+# larger ones; C staged rows per launch as KernelTusk pads them.
+UPDATE_SHAPES = ((64, N_COMMITTEE), (64, 200), (8, 1024))
+UPDATE_ROWS = 256
+
+
+def random_flush(nrng, W: int, N: int, C: int):
+    """C flush entries at random logical slots in [0, W] (W is padding,
+    dropped); one parent cell is hit by two rows."""
+    import numpy as np
+
+    ins_w = nrng.integers(0, W + 1, C).astype(np.int32)
+    ins_i = nrng.integers(0, N, C).astype(np.int32)
+    row_w = nrng.integers(0, W + 1, C).astype(np.int32)
+    row_c = nrng.integers(0, N, C).astype(np.int32)
+    row_v = (nrng.random((C, N)) < 0.7).astype(np.int32)
+    row_w[1], row_c[1] = row_w[0] % W, row_c[0]
+    row_w[0] = row_w[1]
+    return ins_w, ins_i, row_w, row_c, row_v
+
+
+def commit_flush(nrng, W: int, N: int, C: int, certs: int = 100):
+    """A steady commit opportunity's flush: ``certs`` certificates of the
+    rounds at logical slots 2 and up, each with a parent row of a quorum
+    or more, padded to C entries whose rows hold junk values that the
+    kernel must not read (their slot, W, drops them)."""
+    import numpy as np
+
+    quorum = 2 * ((N - 1) // 3) + 1
+    ins_w = np.full(C, W, np.int32)
+    ins_i = np.zeros(C, np.int32)
+    row_v = nrng.integers(1, 4, (C, N)).astype(np.int32)
+    k = np.arange(certs)
+    ins_w[:certs] = np.minimum(2 + k // N, W - 1)
+    ins_i[:certs] = k % N
+    row_v[:certs] = 0
+    for j in range(certs):
+        row_v[j, nrng.permutation(N)[: int(nrng.integers(quorum, N + 1))]] = 1
+    return ins_w, ins_i, ins_w.copy(), ins_i.copy(), row_v
+
+
+def window_update_record(nrng, dev, exists_np, parent_np, flush_np) -> dict:
+    """``window_update`` against its plain twin on the card: the
+    standalone apply (no ring) on the parent smoke's inputs, then the
+    mirrored ring at UPDATE_SHAPES with origins whose views wrap, a
+    retired run that wraps below slot 0, flushes that land in the retired
+    slots or span several rounds of a block's entries, a clear with no
+    flush and a flush with no clear.  Times the three forms of the ring's
+    launch — the flush alone (JAX ``window_apply``), the clear of a shift
+    by 2 alone (``window_shift_op``) and both (the main path's launch) —
+    at every shape, and at N = 50 also its host cost, its plain twin and
+    the PyTorch calls for the same function."""
+    import numpy as np
+    import torch
+
+    from narwhal_tpu_torch.ops import LAUNCHES, reachability as R
+
+    before = dict(LAUNCHES)
+    mism, err = 0, 0.0
+
+    def check(got, want):
+        nonlocal mism, err
+        for a, b in zip(got, want):
+            m, e = diff(a, b)
+            mism += m
+            err = max(err, e)
+
+    flush = [dev(a) for a in flush_np]
+    ke, kp, pe, pp = (dev(a) for a in (exists_np, parent_np, exists_np, parent_np))
+    R.window_apply(ke, kp, *flush)
+    R.window_apply_plain(pe, pp, *flush)
+    check((ke, kp), (pe, pp))
+    apply_args = (dev(exists_np), dev(parent_np), *flush)
+    apply_ms = cuda_ms(lambda: R.window_apply(*apply_args), 100, prefill=True)
+
+    shapes, forms = [], {}
+    for W, N in UPDATE_SHAPES:
+        e_np, p_np = causal_window(nrng, W, N)
+        p_np *= nrng.integers(1, 4, p_np.shape, dtype=np.int32)
+        e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
+        rand = [dev(a) for a in random_flush(nrng, W, N, UPDATE_ROWS)]
+        long = [dev(a) for a in random_flush(nrng, W, N, 2 * UPDATE_ROWS + 88)]
+        cases = ((W - 1, 2, True, rand), (1, 3, True, rand), (W // 2, 0, False, rand),
+                 (3, W - 1, True, None), (0, 0, True, None), (5, 1, True, long))
+        for origin, retired, slot0, fl in cases:
+            k2, q2 = dev(e2_np), dev(p2_np)
+            R.window_update(k2, q2, fl, window=W, origin=origin, retired=retired,
+                            clear_slot0=slot0)
+            want = R.window_update_plain(dev(e2_np), dev(p2_np), fl, window=W,
+                                         origin=origin, retired=retired,
+                                         clear_slot0=slot0)
+            check((k2, q2), want)
+        # The three forms at origin W - 1, a shift by 2 where a clear runs.
+        steady = [dev(a) for a in commit_flush(nrng, W, N, UPDATE_ROWS)]
+        e2, p2 = dev(e2_np), dev(p2_np)
+        o = W - 1
+        form_args = dict(flush=(steady, 0, False), clear=(None, 2, True),
+                         both=(steady, 2, True))
+        shape = dict(window=W, committee=N, cases=len(cases))
+        for name, (fl, retired, slot0) in form_args.items():
+            def call(fl=fl, retired=retired, slot0=slot0):
+                R.window_update(e2, p2, fl, window=W, origin=o, retired=retired,
+                                clear_slot0=slot0)
+            shape[f"ms_{name}"] = cuda_ms(call, 100, prefill=True)
+            if W == 64 and N == N_COMMITTEE:
+                forms[name] = update_form(e2, p2, fl, W, o, retired, slot0, call)
+        shapes.append(shape)
+    main = forms["both"]
+    return dict(
+        replaces="narwhal_tpu/ops/reachability.py:187 (window_shift_op), :163 (window_apply)",
+        source="narwhal_tpu_torch/csrc/reachability.cu",
+        mismatches=mism, max_abs_err=err,
+        check_launches=LAUNCHES["window_update"] - before["window_update"],
+        ms=main["ms"], host_ms_per_call=main["host_ms_per_call"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        bound_ms=main["bound_ms"], bound_by="bytes",
+        extra=dict(forms=forms, shapes=shapes, apply_no_ring_ms=apply_ms),
+    )
+
+
+def update_form(e2, p2, flush, W, origin, retired, clear_slot0, call) -> dict:
+    """One form of the ring's launch at the main path's shape: its time,
+    host cost, plain twin's time, the PyTorch calls for the same function
+    (``index_fill_`` on the two buffers for the clear,
+    ``index_put_(accumulate=True)`` on both copies for the flush) and its
+    bound: the flush's index vectors, the values of its kept rows, and each
+    cell it changes read once and written to both copies; the cleared
+    slots written once in each copy."""
+    import torch
+
+    from narwhal_tpu_torch.ops import reachability as R
+
+    N = e2.shape[1]
+    lib, nbytes = [], 0
+    if retired or clear_slot0:
+        gone = torch.arange(origin - retired, origin, device=e2.device) % W
+        gone2 = torch.cat([gone, gone + W])
+        slot0 = torch.tensor([origin, origin + W], device=e2.device)
+        gone_p = torch.cat([gone2, slot0]) if clear_slot0 else gone2
+        lib.append(lambda: (e2.index_fill_(0, gone2, 0), p2.index_fill_(0, gone_p, 0)))
+        nbytes += 4 * (gone2.numel() * N + gone_p.numel() * N * N)
+    if flush is not None:
+        ins_w, ins_i, row_w, row_c, row_v = flush
+        keep_i, keep_r = ins_w < W, row_w < W
+        si = (ins_w[keep_i].long() + origin) % W
+        sr = (row_w[keep_r].long() + origin) % W
+        ii, rc, rv = ins_i[keep_i].long(), row_c[keep_r].long(), row_v[keep_r]
+        e_idx = (torch.cat([si, si + W]), torch.cat([ii, ii]))
+        p_idx = (torch.cat([sr, sr + W]), torch.cat([rc, rc]))
+        ones, rv2 = torch.ones_like(e_idx[0], dtype=torch.int32), torch.cat([rv, rv])
+        lib.append(lambda: (e2.index_put_(e_idx, ones, accumulate=True),
+                            p2.index_put_(p_idx, rv2, accumulate=True)))
+        touched = int((rv != 0).sum()) + int(keep_i.sum())
+        nbytes += 16 * ins_w.numel() + 4 * rv.numel() + 4 * 3 * touched
+
+    def library():
+        for f in lib:
+            f()
+
+    def plain():
+        R.window_update_plain(e2, p2, flush, window=W, origin=origin,
+                              retired=retired, clear_slot0=clear_slot0)
+
+    return dict(
+        ms=cuda_ms(call, 100, prefill=True),
+        host_ms_per_call=host_ms(call, 100),
+        plain_ms=cuda_ms(plain, 20),
+        library_ms=cuda_ms(library, 100, prefill=True),
+        bound_ms=1000 * nbytes / HBM_BYTES_PER_S,
+    )
+
+
 def verify_launch_shape(batch: int) -> dict:
     """The verify kernel's launch for ``batch`` signatures: grid, block,
     static shared memory per block, and blocks resident per SM
@@ -943,10 +1048,18 @@ async def drive_main_path(committee, signed, unsigned, expected, timings):
 
     def timed_flush():
         t0 = time.perf_counter()
-        flush_pending()  # staged rows → one packed copy → window_apply
+        flush_pending()  # staged rows → one packed copy → window_update
         timings["flush_s"].append(time.perf_counter() - t0)
 
     tusk._flush_pending = timed_flush
+    win_shift = tusk._win_shift
+
+    def timed_shift():
+        t0 = time.perf_counter()
+        win_shift()  # after a commit: the window's shift
+        timings["shift_s"].append(time.perf_counter() - t0)
+
+    tusk._win_shift = timed_shift
     # The live-window check wraps the timed call, so its work stays out of
     # the commit-opportunity figures.
     timings["live_check"] = LiveWindowCheck(tusk).install()
@@ -1072,7 +1185,7 @@ def phase_main_path(keys, committee, signed, rng):
         for cert in certs:
             want += golden.process_certificate(cert)
     timings = {"verify_s": [], "prep_s": [], "claims": [],
-               "commit_opportunity_s": [], "flush_s": []}
+               "commit_opportunity_s": [], "flush_s": [], "shift_s": []}
     t0 = time.perf_counter()
     committed, tusk = asyncio.run(drive_main_path(
         committee, signed, unsigned,
@@ -1108,18 +1221,23 @@ def phase_main_path(keys, committee, signed, rng):
         commit_opportunities=len(opp),
         ms_per_commit_opportunity=1000 * sum(opp) / max(1, len(opp)),
         ms_flush_per_commit_opportunity=1000 * sum(timings["flush_s"]) / max(1, len(opp)),
+        # A commit's whole window work on the host: the opportunity and the
+        # shift that follows the commit (outside the opportunity's timer).
+        commits_shifted=len(timings["shift_s"]),
+        ms_shift_per_commit_opportunity=1000 * sum(timings["shift_s"]) / max(1, len(opp)),
+        ms_per_commit=1000 * (sum(opp) + sum(timings["shift_s"])) / max(1, len(opp)),
         committed=len(committed), committed_after_signed=timings["after_signed"],
         last_committed_round=tusk.state.last_committed_round,
         python_fallbacks=tusk.python_fallbacks,
         sequence_equal=True,
         launches=launches,
-        # Launches per main-path step: one verify per round burst; one
-        # apply and one scan per commit opportunity, and one shift per
-        # commit that moves the window.
+        # Launches per main-path step: one verify per round burst, and per
+        # commit opportunity those of the window's kernels (one update,
+        # which also runs the last commit's shift, and one scan).
         launches_per_verify_batch=launches["ed25519_verify"] / len(verify_s),
         launches_per_commit_opportunity={
-            name: launches[name] / max(1, len(opp))
-            for name in ("window_apply", "leader_commit_scan", "window_shift")
+            name: n / max(1, len(opp)) for name, n in launches.items()
+            if name != "ed25519_verify" and name not in check.KERNELS
         },
         # The live-window check, outside the timed figures: opportunities
         # checked, and the bool-window kernels' launches per opportunity.
@@ -1213,7 +1331,9 @@ def main() -> int:
             if name == "ed25519_verify" else {}),
          **({k: r["extra"][k] for k in ("launch_w64_n50", "cycles_w64_n50", "shapes",
                                         "registers_by_n")}
-            if name in SCAN_KERNELS else {})}
+            if name in SCAN_KERNELS else {}),
+         **({k: r["extra"][k] for k in ("forms", "shapes", "apply_no_ring_ms")}
+            if name == "window_update" else {})}
         for name, r in records.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -1,8 +1,9 @@
 // Tusk's commit-path window kernels for Hopper (sm_90a).
 //
 // Replaces the jitted JAX programs of narwhal_tpu/ops/reachability.py:
-//   window_apply            <- window_apply (donated scatter-add)
-//   window_shift            <- window_shift_op (donated gather)
+//   window_update           <- window_shift_op followed by window_apply (the
+//                              donated gather and scatter-add), one launch
+//                              over a mirrored ring window
 //   leader_commit_scan      <- leader_commit_scan_counts / _chain_scan
 //   leader_chain_scan       <- leader_chain_scan (the same _chain_scan on
 //                              bool inputs, with the per-slot reach masks)
@@ -17,15 +18,16 @@
 // What bounds them on the card: at the main path's W = 64, N = 50 the
 // whole parent window is 640 KB (160 KB as bools), so each kernel moves at
 // most ~1.3 MB, far below what a launch latency's worth of bandwidth
-// carries.  The apply, shift and support kernels are bound by launch
-// latency; the three scans by the latency of their W dependent steps.  The
-// design answers: the launch count (one launch per flush chunk, one per
-// shift, one for the support gate, one for a whole W-step scan, whose
-// steps loop inside the kernel instead of one launch per step), and
-// inside the scans a step with no memory round trip and no block barrier:
-// a cluster of blocks packs the window into bits in shared memory first,
-// then one warp steps the scan on them (csrc/window_bits.cuh).  The
-// kernels take N <= 1024.
+// carries.  The update and support kernels are bound by launch latency;
+// the three scans by the latency of their W dependent steps.  The design
+// answers: the launch count (one update launch per commit opportunity for
+// both the flush and the pending shift, one for the support gate, one for
+// a whole W-step scan, whose steps loop inside the kernel instead of one
+// launch per step), a shift that moves no counts (the ring's origin moves
+// and only the retired slots are zeroed), and inside the scans a step with
+// no memory round trip and no block barrier: a cluster of blocks packs
+// the window into bits in shared memory first, then one warp steps the
+// scan on them (csrc/window_bits.cuh).  The kernels take N <= 1024.
 //
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns the cudaError_t of the launch.
@@ -37,51 +39,173 @@
 
 namespace {
 
-// One thread per (row, column) of the flush.  Rows whose slot lies outside
-// [0, W) (the padding, slot index W) are dropped.  atomicAdd because one
-// flush may legitimately hit one cell twice: a full row and a repair row.
-__global__ void window_apply_kernel(int32_t* __restrict__ exists,
-                                    int32_t* __restrict__ parent,
-                                    const int32_t* __restrict__ ins_w,
-                                    const int32_t* __restrict__ ins_i,
-                                    const int32_t* __restrict__ row_w,
-                                    const int32_t* __restrict__ row_c,
-                                    const int32_t* __restrict__ row_v,
-                                    int W, int N, int C) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)C * N) return;
-  const int r = (int)(t / N);
-  const int col = (int)(t % N);
-  if (col == 0) {
-    const int w = ins_w[r], i = ins_i[r];
-    if (w >= 0 && w < W && i >= 0 && i < N) atomicAdd(&exists[w * N + i], 1);
-  }
-  const int w = row_w[r], c = row_c[r];
-  if (w >= 0 && w < W && c >= 0 && c < N) {
-    const int32_t v = row_v[(int64_t)r * N + col];
-    if (v != 0) atomicAdd(&parent[((int64_t)w * N + c) * N + col], v);
+// window_update: the window's pending shift (JAX window_shift_op) and the
+// flush of staged certificates (JAX window_apply) in one launch, over a
+// MIRRORED RING.  The commit path keeps 2W physical slots, slot p and slot
+// p + W always equal, so logical slot w is physical (origin + w) mod W and
+// the logical window is the contiguous range [origin, origin + W) that the
+// scans read unchanged.  A shift by d < W moves the origin on the host and
+// leaves the retired slots to the next launch: no count moves.  The launch
+//   1. zeroes the `retired` physical slots just below the origin (exists
+//      and parent) and, with clear_slot0, the parent block of the origin
+//      itself (JAX's slot 0 keeps no parent edges), in both copies;
+//   2. adds the staged rows, parent[row_w, row_c, :] += row_v, and the
+//      insert entries, exists[ins_w, ins_i] += 1, at logical slots, to both
+//      copies, with atomics whose result is unused (RED).  Counts stay
+//      counts: duplicate rows add, as JAX's scatter-add does.
+// Without the mirror (buffers of W slots, origin 0, nothing retired) it is
+// the standalone window_apply.
+//
+// The grid has two kinds of blocks of kUpdateThreads, so that the stores
+// of a clear and the adds of a flush run on different SMs (on one SM they
+// queue behind each other, as measured on an H100 in PERF.md).  A parent
+// row q = s * N + c (s a physical slot in [0, W)) is cut into `chunks`
+// chunks of kChunkCols columns, and a warp adds a row chunk by loading its
+// values at once, then adding them.  Both kinds read the flush's index
+// vectors kUpdateThreads entries a round; padding rows (slot outside
+// [0, W)) are never read.
+//   - Adders, 32 * chunks blocks: the entries whose slot is not being
+//     cleared need no order, so adder l * chunks + k applies chunk k of
+//     the row at lane l of every warp's 32 entries (one row chunk a warp a
+//     round), and the insert at lane l in adder l * chunks.  On the commit
+//     path every staged row is such (new rounds land above the retired
+//     slots): the launch's chain is one load of the indices, one of the
+//     values, then the adds.
+//   - Clearers, a power of two B of them: unit u = q * chunks + k of a
+//     cleared slot belongs to clearer u mod B, in both copies, and the
+//     exists cell q to the owner of the row's first chunk.  A clearer
+//     zeroes its units, waits at one __syncthreads, then applies the
+//     entries that land in its units (a flush into the slots it just
+//     retired, when the window's rounds reach its top).
+// All index arithmetic is 32-bit: the launcher refuses a window of more
+// than 2^31 - 1 parent counts.
+struct UpdateArgs {
+  int32_t* exists;  // [S][N], S = W, or 2W with the mirror
+  int32_t* parent;  // [S][N][N]
+  const int32_t* ins_w;
+  const int32_t* ins_i;
+  const int32_t* row_w;
+  const int32_t* row_c;
+  const int32_t* row_v;  // [C][N]
+  int W, N, C;
+  int origin;       // physical slot of logical slot 0, in [0, W)
+  int mirror;       // 1: slot p + W repeats slot p
+  int retired;      // slots below the origin to zero, in [0, W)
+  int clear_slot0;  // zero the parent block of slot `origin`
+};
+
+constexpr int kUpdateThreads = 256;
+constexpr int kChunkCols = 256;
+
+// Zero n int32s from p by one warp: 16-byte stores where p and n allow.
+__device__ __forceinline__ void zero_cols(int32_t* p, int n, int lane) {
+  if ((n & 3) == 0 && ((uintptr_t)p & 15) == 0) {
+    int4* v = reinterpret_cast<int4*>(p);
+    for (int k = lane; k < (n >> 2); k += 32) v[k] = make_int4(0, 0, 0, 0);
+  } else {
+    for (int k = lane; k < n; k += 32) p[k] = 0;
   }
 }
 
-// Out of place: dst slot w takes src slot w + d; vacated slots and parent
-// slot 0 are zero.  (In place, a thread would read slot w + d while another
-// writes it.)
-__global__ void window_shift_kernel(const int32_t* __restrict__ exists,
-                                    const int32_t* __restrict__ parent,
-                                    int32_t* __restrict__ out_exists,
-                                    int32_t* __restrict__ out_parent, int d,
-                                    int W, int N) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t slot_p = (int64_t)N * N;
-  if (t >= (int64_t)W * slot_p) return;
-  const int w = (int)(t / slot_p);
-  const int64_t rem = t % slot_p;
-  const int64_t src = (int64_t)w + d;
-  out_parent[t] = (src < W && w > 0) ? parent[src * slot_p + rem] : 0;
-  if (t < (int64_t)W * N) {
-    const int we = (int)(t / N);
-    const int64_t srce = (int64_t)we + d;
-    out_exists[t] = srce < W ? exists[srce * N + t % N] : 0;
+// dst[col] += src[col] for the n <= kChunkCols columns of a row chunk, in
+// each copy, by one warp: every load first, then the adds.
+__device__ __forceinline__ void add_cols(int32_t* dst, const int32_t* src, int n,
+                                         int lane, int copies, int mirror_p) {
+  constexpr int kSpan = kChunkCols / 32;
+  int32_t x[kSpan];
+#pragma unroll
+  for (int i = 0; i < kSpan; ++i) x[i] = i * 32 + lane < n ? src[i * 32 + lane] : 0;
+#pragma unroll
+  for (int i = 0; i < kSpan; ++i)
+    if (x[i] != 0)
+      for (int c = 0; c < copies; ++c) atomicAdd(dst + c * mirror_p + i * 32 + lane, x[i]);
+}
+
+// One round's entry of this thread, resolved: the row's q, or -1 where the
+// row is padding; the insert's cell, or -1; whether each lands in a slot
+// being cleared.
+struct Entry {
+  int q, qi;
+  bool row_cleared, ins_cleared;
+};
+
+__device__ __forceinline__ Entry resolve(const UpdateArgs& a, int rw, int rc, int iw,
+                                         int ii, int from) {
+  const int W = a.W, N = a.N;
+  Entry e{-1, -1, false, false};
+  if (rw >= 0 && rw < W && rc >= 0 && rc < N) {
+    const int p = a.origin + rw - (a.origin + rw >= W ? W : 0);
+    const int d = p - from + (p < from ? W : 0);
+    e.q = p * N + rc;
+    e.row_cleared = d < a.retired || (a.clear_slot0 && p == a.origin);
+  }
+  if (iw >= 0 && iw < W && ii >= 0 && ii < N) {
+    const int p = a.origin + iw - (a.origin + iw >= W ? W : 0);
+    const int d = p - from + (p < from ? W : 0);
+    e.qi = p * N + ii;
+    e.ins_cleared = d < a.retired;
+  }
+  return e;
+}
+
+__global__ void __launch_bounds__(kUpdateThreads)
+    window_update_kernel(UpdateArgs a, int adders) {
+  const int lane = (int)(threadIdx.x & 31), warp = (int)(threadIdx.x >> 5);
+  const int W = a.W, N = a.N;
+  const int chunks = (N + kChunkCols - 1) / kChunkCols;
+  const int copies = 1 + a.mirror, mirror_e = W * N, mirror_p = W * N * N;
+  const bool adder = (int)blockIdx.x < adders;
+  const int b = (int)blockIdx.x - (adder ? 0 : adders);
+  const int B = (int)gridDim.x - adders;  // clearers
+  int from = a.origin - a.retired;
+  if (from < 0) from += W;
+  if (!adder) {
+    const int first = min(a.retired, W - from);
+    // Three runs of rows: the retired slots (one run, or two where they
+    // wrap below slot 0; with their exists cells) and the origin's parent.
+    for (int run = 0; run < 3; ++run) {
+      int lo = from * N, hi = (from + first) * N;
+      if (run == 1) lo = 0, hi = (a.retired - first) * N;
+      if (run == 2) {
+        if (!a.clear_slot0) break;
+        lo = a.origin * N, hi = lo + N;
+      }
+      const int ulo = lo * chunks, uhi = hi * chunks, warps = kUpdateThreads / 32;
+      for (int u = ulo + ((b - ulo) & (B - 1)) + warp * B; u < uhi; u += warps * B) {
+        const int q = u / chunks, c0 = (u - q * chunks) * kChunkCols;
+        for (int c = 0; c < copies; ++c) {
+          zero_cols(a.parent + q * N + c * mirror_p + c0, min(kChunkCols, N - c0), lane);
+          if (run < 2 && c0 == 0 && lane == 0) a.exists[q + c * mirror_e] = 0;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int my_lane = b / chunks, c0 = (b - my_lane * chunks) * kChunkCols;  // an adder's
+  for (int base = 0; base < a.C; base += kUpdateThreads) {
+    const int k = base + (int)threadIdx.x;
+    const Entry e = k < a.C ? resolve(a, a.row_w[k], a.row_c[k], a.ins_w[k], a.ins_i[k], from)
+                            : Entry{-1, -1, false, false};
+    if (adder) {
+      if (e.qi >= 0 && !e.ins_cleared && lane * chunks == b)
+        for (int c = 0; c < copies; ++c) atomicAdd(a.exists + e.qi + c * mirror_e, 1);
+      const int q = __shfl_sync(0xffffffffu, e.row_cleared ? -1 : e.q, my_lane);
+      if (q >= 0)
+        add_cols(a.parent + q * N + c0, a.row_v + (base + warp * 32 + my_lane) * N + c0,
+                 min(kChunkCols, N - c0), lane, copies, mirror_p);
+      continue;
+    }
+    if (e.qi >= 0 && e.ins_cleared && ((e.qi * chunks) & (B - 1)) == b)
+      for (int c = 0; c < copies; ++c) atomicAdd(a.exists + e.qi + c * mirror_e, 1);
+    for (int j = 0; j < chunks; ++j) {
+      const bool own = e.q >= 0 && e.row_cleared && ((e.q * chunks + j) & (B - 1)) == b;
+      for (unsigned m = __ballot_sync(0xffffffffu, own); m != 0; m &= m - 1) {
+        const int l = __ffs(m) - 1, cj = j * kChunkCols;
+        add_cols(a.parent + __shfl_sync(0xffffffffu, e.q, l) * N + cj,
+                 a.row_v + (base + warp * 32 + l) * N + cj, min(kChunkCols, N - cj), lane,
+                 copies, mirror_p);
+      }
+    }
   }
 }
 
@@ -162,30 +286,29 @@ __global__ void support_stake_kernel(const bool* __restrict__ parent,
 
 }  // namespace
 
-extern "C" int nt_window_apply(void* exists, void* parent, const void* ins_w,
-                               const void* ins_i, const void* row_w,
-                               const void* row_c, const void* row_v, int W,
-                               int N, int C, void* stream) {
-  const int64_t threads = (int64_t)C * N;
-  if (threads == 0) return (int)cudaSuccess;
-  const int block = 256;
-  const int grid = (int)((threads + block - 1) / block);
-  window_apply_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (int32_t*)exists, (int32_t*)parent, (const int32_t*)ins_w,
-      (const int32_t*)ins_i, (const int32_t*)row_w, (const int32_t*)row_c,
-      (const int32_t*)row_v, W, N, C);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int nt_window_shift(const void* exists, const void* parent,
-                               void* out_exists, void* out_parent, int d, int W,
-                               int N, void* stream) {
-  const int64_t threads = (int64_t)W * N * N;
-  const int block = 256;
-  const int grid = (int)((threads + block - 1) / block);
-  window_shift_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)exists, (const int32_t*)parent, (int32_t*)out_exists,
-      (int32_t*)out_parent, d, W, N);
+extern "C" int nt_window_update(void* exists, void* parent, const void* ins_w,
+                                const void* ins_i, const void* row_w,
+                                const void* row_c, const void* row_v, int W, int N,
+                                int C, int origin, int mirror, int retired,
+                                int clear_slot0, void* stream) {
+  if (N < 1 || N > 1024 || W < 1 || C < 0 || origin < 0 || origin >= W ||
+      retired < 0 || retired >= W || (mirror != 0 && mirror != 1) ||
+      (int64_t)(1 + mirror) * W * N * N > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const UpdateArgs a{(int32_t*)exists, (int32_t*)parent, (const int32_t*)ins_w,
+                     (const int32_t*)ins_i, (const int32_t*)row_w, (const int32_t*)row_c,
+                     (const int32_t*)row_v, W, N, C, origin, mirror, retired,
+                     clear_slot0 != 0};
+  // The adders, and about one row chunk to zero a warp of the clearers.
+  const int chunks = (N + kChunkCols - 1) / kChunkCols;
+  const int adders = C > 0 ? 32 * chunks : 0;
+  const int units = (retired + a.clear_slot0) * N * chunks;
+  int clearers = units > 0 ? 16 : 0;
+  while (clearers > 0 && clearers < 512 && clearers * (kUpdateThreads / 32) < units)
+    clearers <<= 1;
+  if (adders + clearers == 0) return (int)cudaSuccess;
+  window_update_kernel<<<adders + clearers, kUpdateThreads, 0, (cudaStream_t)stream>>>(
+      a, adders);
   return (int)cudaGetLastError();
 }
 

@@ -37,8 +37,7 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 # kernel on the card and nowhere else (the plain CPU twin never counts).
 LAUNCHES: Dict[str, int] = {
     "ed25519_verify": 0,
-    "window_apply": 0,
-    "window_shift": 0,
+    "window_update": 0,
     "leader_commit_scan": 0,
     "leader_chain_scan": 0,
     "causal_mask_scan": 0,

@@ -1,15 +1,18 @@
-"""Tusk's DAG window on the card: six hand-written CUDA kernels.
+"""Tusk's DAG window on the card: five hand-written CUDA kernels.
 
 The port of ``narwhal_tpu/ops/reachability.py``.  The commit path's
 window is a pair of int32 presence-COUNT tensors that live on ``device``
 across calls — ``exists[W, N]`` (certificate present at slot w, authority
 n) and ``parent[W, N, N]`` (cert (w, n) references cert (w-1, m)) —
-maintained and read by three kernels (csrc/reachability.cu):
+kept as a mirrored ring (:class:`WindowRing`: 2W physical slots, slot p
+and p + W equal, so the logical window is one contiguous view) and
+maintained and read by two kernels (csrc/reachability.cu):
 
-- :func:`window_apply` scatter-adds a flush of staged certificates
-  (replaces the JAX ``window_apply``);
-- :func:`window_shift` shifts the window down after a commit (replaces
-  ``window_shift_op``);
+- :func:`window_update` zeroes the slots the last shifts retired and
+  scatter-adds a flush of staged certificates, in one launch (replaces
+  the JAX ``window_shift_op`` followed by ``window_apply``; the ring's
+  shift itself only moves its origin, and :func:`window_apply` keeps the
+  JAX signature for a plain window);
 - :func:`leader_commit_scan` runs the whole linked-leader chain in one
   launch and returns the W-bool committed bitmap (replaces
   ``leader_commit_scan_counts`` and its body ``_chain_scan``).
@@ -28,11 +31,10 @@ The flagship commit step (``narwhal_tpu_torch/commit_step.py``) composes
 the last and the first of these.
 
 Where the JAX programs donate their buffers, the port updates the
-window tensors in place (apply) or writes into a second pair of buffers
-that the caller swaps in (shift).  Each wrapper launches its kernel for a
-CUDA tensor and runs the plain PyTorch twin beside it only for a CPU
-tensor; the twin is what the CPU tests hold against the JAX programs.
-The window kernels take N <= 1024 authorities.
+window tensors in place.  Each wrapper launches its kernel for a CUDA
+tensor and runs the plain PyTorch twin beside it only for a CPU tensor;
+the twin is what the CPU tests hold against the JAX programs.  The
+window kernels take N <= 1024.
 
 The three scans share one kernel body (``csrc/window_bits.cuh``): a
 cluster of eight blocks packs the window into bits in the first block's
@@ -66,81 +68,169 @@ _m_fallbacks = metrics.counter("consensus.kernel.python_fallbacks")
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
-# ---------------------------------------------------------------- window_apply
+# --------------------------------------------------------------- window_update
 
 
-def window_apply_plain(exists, parent, ins_w, ins_i, row_w, row_c, row_v):
-    """Plain twin of :func:`window_apply`: index_add_ on flat views.
-    Entries whose slot or authority falls outside the window are dropped
-    (the JAX ``mode="drop"``)."""
-    W, N = exists.shape
+def window_update_plain(exists, parent, flush=None, *, window: int,
+                        origin: int = 0, retired: int = 0,
+                        clear_slot0: bool = False):
+    """Plain twin of :func:`window_update`: the clears by indexing, the
+    flush by index_add_ on flat views, in each copy.  Flush entries whose
+    slot or authority falls outside the window are dropped (the JAX
+    ``mode="drop"``)."""
+    W = window
+    S, N = exists.shape
+    copies = S // W
+    dev = exists.device
+    gone = torch.arange(origin - retired, origin, device=dev) % W
+    for c in range(copies):
+        exists[gone + c * W] = 0
+        parent[gone + c * W] = 0
+        if clear_slot0:
+            parent[origin + c * W] = 0
+    if flush is None:
+        return exists, parent
+    ins_w, ins_i, row_w, row_c, row_v = flush
     keep = (ins_w >= 0) & (ins_w < W) & (ins_i >= 0) & (ins_i < N)
-    flat = (ins_w * N + ins_i)[keep].long()
-    exists.view(-1).index_add_(0, flat, torch.ones_like(flat, dtype=exists.dtype))
-    keep = (row_w >= 0) & (row_w < W) & (row_c >= 0) & (row_c < N)
-    flat = (row_w * N + row_c)[keep].long()
-    parent.view(W * N, N).index_add_(0, flat, row_v[keep])
+    slot = (ins_w[keep].long() + origin) % W
+    ones = torch.ones(slot.shape, dtype=exists.dtype, device=dev)
+    keep_r = (row_w >= 0) & (row_w < W) & (row_c >= 0) & (row_c < N)
+    slot_r = (row_w[keep_r].long() + origin) % W
+    for c in range(copies):
+        exists.view(-1).index_add_(0, (slot + c * W) * N + ins_i[keep].long(), ones)
+        parent.view(S * N, N).index_add_(
+            0, (slot_r + c * W) * N + row_c[keep_r].long(), row_v[keep_r])
+    return exists, parent
+
+
+def window_update(exists, parent, flush=None, *, window: int, origin: int = 0,
+                  retired: int = 0, clear_slot0: bool = False):
+    """The window's pending shift and one flush of staged certificates, in
+    place, in one launch.  ``exists`` [S, N] and ``parent`` [S, N, N] hold
+    S = ``window`` slots, or 2·``window`` as a mirrored ring (slot p + W
+    repeats slot p, and every write goes to both).  Logical slot w is
+    physical (``origin`` + w) mod W.  First the ``retired`` slots just below
+    ``origin`` are zeroed (exists and parent) and, with ``clear_slot0``,
+    the parent block of ``origin`` itself; then ``flush`` = (ins_w, ins_i,
+    row_w, row_c, row_v) adds exists[ins_w, ins_i] += 1 and
+    parent[row_w, row_c, :] += row_v at logical slots, dropping entries
+    whose slot is outside [0, W).  Counts make duplicate and late
+    (waiting-child repair) rows order-independent.  Returns the two
+    tensors."""
+    W = window
+    S, N = exists.shape
+    if S not in (W, 2 * W) or not 0 <= origin < W or not 0 <= retired < W:
+        raise ValueError(
+            f"window_update: {S} slots, window {W}, origin {origin}, "
+            f"retired {retired}")
+    if exists.device.type == "cpu":
+        return window_update_plain(exists, parent, flush, window=W, origin=origin,
+                                   retired=retired, clear_slot0=clear_slot0)
+    if N > 1024 or S * N * N > 2**31 - 1:
+        raise ValueError(f"window_update: {S} slots of N={N} exceed 32-bit indexing")
+    dev = exists.device
+    require(exists, torch.int32, (S, N), dev, "window_update exists")
+    require(parent, torch.int32, (S, N, N), dev, "window_update parent")
+    C = 0 if flush is None else flush[0].shape[0]
+    if flush is not None:
+        for name, t in zip(("ins_w", "ins_i", "row_w", "row_c"), flush):
+            require(t, torch.int32, (C,), dev, f"window_update {name}")
+        require(flush[4], torch.int32, (C, N), dev, "window_update row_v")
+    if C == 0 and retired == 0 and not clear_slot0:
+        return exists, parent
+    ptrs = [ptr(t) for t in flush] if flush is not None else [_VP(0)] * 5
+    fn = kernel_fn("nt_window_update", _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                   _I, _I, _I, _I, _VP)
+    rc = fn(ptr(exists), ptr(parent), *ptrs, W, N, C, int(origin), int(S == 2 * W),
+            int(retired), int(bool(clear_slot0)), _VP(stream_handle(dev)))
+    check_launch("window_update", rc)
     return exists, parent
 
 
 def window_apply(exists, parent, ins_w, ins_i, row_w, row_c, row_v):
-    """One batched insert flush, in place: exists[ins_w, ins_i] += 1 and
-    parent[row_w, row_c, :] += row_v, dropping entries whose slot is
-    outside [0, W).  Counts make duplicate and late (waiting-child repair)
-    rows order-independent.  Returns the same two tensors."""
-    if exists.device.type == "cpu":
-        return window_apply_plain(exists, parent, ins_w, ins_i, row_w, row_c, row_v)
-    W, N = exists.shape
-    C = ins_w.shape[0]
-    dev = exists.device
-    require(exists, torch.int32, (W, N), dev, "window_apply exists")
-    require(parent, torch.int32, (W, N, N), dev, "window_apply parent")
-    for name, t in (("ins_w", ins_w), ("ins_i", ins_i), ("row_w", row_w), ("row_c", row_c)):
-        require(t, torch.int32, (C,), dev, f"window_apply {name}")
-    require(row_v, torch.int32, (C, N), dev, "window_apply row_v")
-    fn = kernel_fn("nt_window_apply", _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP)
-    rc = fn(ptr(exists), ptr(parent), ptr(ins_w), ptr(ins_i), ptr(row_w),
-            ptr(row_c), ptr(row_v), W, N, C, ctypes.c_void_p(stream_handle(dev)))
-    check_launch("window_apply", rc)
-    return exists, parent
+    """One batched insert flush, in place, with the JAX signature:
+    exists[ins_w, ins_i] += 1 and parent[row_w, row_c, :] += row_v,
+    dropping entries whose slot is outside [0, W).  The
+    :func:`window_update` launch with origin 0, no mirror and nothing to
+    clear.  Returns the same two tensors."""
+    return window_update(exists, parent, (ins_w, ins_i, row_w, row_c, row_v),
+                         window=exists.shape[0])
 
 
-# ---------------------------------------------------------------- window_shift
+def window_apply_plain(exists, parent, ins_w, ins_i, row_w, row_c, row_v):
+    """Plain twin of :func:`window_apply`."""
+    return window_update_plain(exists, parent, (ins_w, ins_i, row_w, row_c, row_v),
+                               window=exists.shape[0])
 
 
-def window_shift_plain(exists, parent, d, out_exists, out_parent):
-    """Plain twin of :func:`window_shift`."""
-    W = exists.shape[0]
-    out_exists.zero_()
-    out_parent.zero_()
-    if d < W:
-        out_exists[: W - d] = exists[d:]
-        # Slot 0 keeps no parent edges (the scan never reads parent[0]).
-        out_parent[1 : W - d] = parent[1 + d :]
-    return out_exists, out_parent
+class WindowRing:
+    """The commit path's count window as a mirrored ring on ``device``:
+    ``exists2`` int32[2W, N] and ``parent2`` int32[2W, N, N], slot p and
+    slot p + W always equal, so the logical window (logical slot w at
+    physical (origin + w) mod W) is the contiguous view
+    ``[origin, origin + W)`` that the scans take.  W is a power of two.
 
+    :meth:`shift` is the port of JAX's ``window_shift_op``: it moves the
+    origin and leaves the retired slots to be zeroed by the next
+    :meth:`update`, which applies a flush in the same launch.  Reading
+    :attr:`exists` or :attr:`parent` with a clear pending first runs it
+    (one launch with no flush)."""
 
-def window_shift(exists, parent, d: int, out_exists, out_parent):
-    """Shift the window down by ``d`` ≥ 0 slots into the second pair of
-    buffers (slot w takes slot w+d; vacated top slots and parent slot 0
-    are zero).  Out of place: a parallel in-place shift would read slot
-    w+d while another thread writes it.  Returns (out_exists, out_parent);
-    the caller swaps them in."""
-    if d < 0:
-        raise ValueError(f"window_shift: d must be >= 0, got {d}")
-    if exists.device.type == "cpu":
-        return window_shift_plain(exists, parent, d, out_exists, out_parent)
-    W, N = exists.shape
-    dev = exists.device
-    require(exists, torch.int32, (W, N), dev, "window_shift exists")
-    require(parent, torch.int32, (W, N, N), dev, "window_shift parent")
-    require(out_exists, torch.int32, (W, N), dev, "window_shift out_exists")
-    require(out_parent, torch.int32, (W, N, N), dev, "window_shift out_parent")
-    fn = kernel_fn("nt_window_shift", _VP, _VP, _VP, _VP, _I, _I, _I, _VP)
-    rc = fn(ptr(exists), ptr(parent), ptr(out_exists), ptr(out_parent),
-            int(d), W, N, ctypes.c_void_p(stream_handle(dev)))
-    check_launch("window_shift", rc)
-    return out_exists, out_parent
+    def __init__(self, window: int, n: int, device) -> None:
+        if window < 1 or window & (window - 1):
+            raise ValueError(f"WindowRing: window {window} is not a power of two")
+        self.window, self.n = window, n
+        self.exists2 = torch.zeros((2 * window, n), dtype=torch.int32, device=device)
+        self.parent2 = torch.zeros((2 * window, n, n), dtype=torch.int32, device=device)
+        self.origin = 0
+        # Zeroed by the next update: the `retired` slots below the origin,
+        # and the parent block of the origin (the new slot 0).
+        self.retired = 0
+        self.clear_slot0 = False
+
+    @property
+    def pending(self) -> bool:
+        return self.retired > 0 or self.clear_slot0
+
+    def shift(self, d: int) -> None:
+        """Shift the window down by ``d`` >= 0 slots: logical slot w takes
+        slot w + d; the vacated top slots and the parent block of slot 0
+        read as zero.  No launch, except that a shift reaching past every
+        slot not yet cleared zeroes both buffers at once."""
+        if d < 0:
+            raise ValueError(f"WindowRing.shift: d must be >= 0, got {d}")
+        W = self.window
+        if self.retired + d >= W:
+            self.exists2.zero_()
+            self.parent2.zero_()
+            self.origin, self.retired, self.clear_slot0 = 0, 0, False
+            return
+        self.origin = (self.origin + d) & (W - 1)
+        self.retired += d
+        self.clear_slot0 = True
+
+    def update(self, flush=None) -> None:
+        """The pending clears, then ``flush`` (ins_w, ins_i, row_w, row_c,
+        row_v at logical slots; ``None`` for none): one launch."""
+        window_update(self.exists2, self.parent2, flush, window=self.window,
+                      origin=self.origin, retired=self.retired,
+                      clear_slot0=self.clear_slot0)
+        self.retired, self.clear_slot0 = 0, False
+
+    def _view(self, t):
+        if self.pending:
+            self.update()
+        return t[self.origin : self.origin + self.window]
+
+    @property
+    def exists(self):
+        """The logical window's exists, int32[W, N] (a view)."""
+        return self._view(self.exists2)
+
+    @property
+    def parent(self):
+        """The logical window's parent, int32[W, N, N] (a view)."""
+        return self._view(self.parent2)
 
 
 # ----------------------------------------------------------- leader_commit_scan
@@ -359,14 +449,16 @@ class KernelTusk(Tusk):
     - **Commit opportunity** (``order_leaders``, reached only when the
       host-side f+1 support gate passes): the staged batch is resolved
       (digest → (round, authority), out-of-order children repaired via the
-      waiting-child map), copied to the card in one packed transfer per
-      chunk of C rows and applied by :func:`window_apply`; then ONE
-      :func:`leader_commit_scan` launch computes the linked-leader chain
-      and only its W bools come back to the host.
-    - **Commit** (``_win_shift``): :func:`window_shift` moves the window
-      down to the new ``last_committed_round`` into the spare buffers,
-      which are swapped in; host maps prune below the new base;
-      certificates that arrived beyond the window during a stall re-stage.
+      waiting-child map), copied to the card in one packed transfer and
+      applied by one :func:`window_update` launch per chunk of C rows, the
+      first of which also zeroes the slots the last commit retired; then
+      ONE :func:`leader_commit_scan` launch computes the linked-leader
+      chain and only its W bools come back to the host.
+    - **Commit** (``_win_shift``): the window's :class:`WindowRing` moves
+      its origin to the new ``last_committed_round`` with no launch (the
+      retired slots are zeroed by the next flush's launch); host maps
+      prune below the new base; certificates that arrived beyond the
+      window during a stall re-stage.
 
     One static window shape, the smallest power of two covering
     gc_depth+2 rounds; a span beyond it (a commit stall racing GC) takes
@@ -392,10 +484,8 @@ class KernelTusk(Tusk):
         while cap < 4 * n:
             cap <<= 1
         self._cap = cap
-        # The device-resident window (presence COUNTS, nonzero = present)
-        # and the spare pair window_shift writes into.
-        self._dev_exists, self._dev_parent = self._zero_window()
-        self._spare_exists, self._spare_parent = self._zero_window()
+        # The device-resident window (presence COUNTS, nonzero = present).
+        self._ring = WindowRing(w, n, self.device)
         self._pending: List = []
         # digest → (absolute round, authority index), resolved at flush for
         # every certificate at or above the window base (pruned on shift)
@@ -408,12 +498,16 @@ class KernelTusk(Tusk):
         self._overflow: List = []
         self._pending.extend(genesis(committee))
 
-    def _zero_window(self):
-        W, n = self.max_window, self._n
-        return (
-            torch.zeros((W, n), dtype=torch.int32, device=self.device),
-            torch.zeros((W, n, n), dtype=torch.int32, device=self.device),
-        )
+    @property
+    def _dev_exists(self):
+        """The logical window's exists counts, int32[W, n] on the device
+        (runs a pending clear first)."""
+        return self._ring.exists
+
+    @property
+    def _dev_parent(self):
+        """The logical window's parent counts, int32[W, n, n]."""
+        return self._ring.parent
 
     # -- arrival path: O(1) staging ------------------------------------
 
@@ -430,6 +524,8 @@ class KernelTusk(Tusk):
     # -- flush: one launch per chunk of C staged rows ------------------
 
     def _flush_pending(self) -> None:
+        # With nothing staged, a pending clear runs when the scan reads the
+        # window.
         if not self._pending:
             return
         pending, self._pending = self._pending, []
@@ -507,37 +603,25 @@ class KernelTusk(Tusk):
         for k in range(chunks):
             row = dev_buf[k]
             _m_dispatches.inc()
-            window_apply(
-                self._dev_exists,
-                self._dev_parent,
+            # The first chunk's launch also runs the pending clears.
+            self._ring.update((
                 row[0:C],
                 row[C : 2 * C],
                 row[2 * C : 3 * C],
                 row[3 * C : 4 * C],
                 row[4 * C :].view(C, n),
-            )
+            ))
 
     def _win_shift(self) -> None:
         new_base = max(0, self.state.last_committed_round)
         d = new_base - self._win_base
         if d <= 0:
             return
-        if d >= self.max_window:
-            # Nothing in the old window survives: zero it, no shift launch.
-            self._dev_exists.zero_()
-            self._dev_parent.zero_()
-        else:
+        if d < self.max_window:
             _m_shifts.inc()
-            window_shift(
-                self._dev_exists, self._dev_parent, d,
-                self._spare_exists, self._spare_parent,
-            )
-            self._dev_exists, self._spare_exists = (
-                self._spare_exists, self._dev_exists,
-            )
-            self._dev_parent, self._spare_parent = (
-                self._spare_parent, self._dev_parent,
-            )
+        # No launch: the origin moves and the next flush zeroes the retired
+        # slots (a shift past the whole window zeroes it at once).
+        self._ring.shift(d)
         self._win_base = new_base
         # Prune host maps below the window (slot-0 certs resolve no parents).
         self._digest_pos = {
@@ -560,16 +644,15 @@ class KernelTusk(Tusk):
         path once on scratch buffers, off the critical path (call at node
         boot).  The instance window is untouched."""
         n, W, C = self._n, self.max_window, self._cap
-        e, p = self._zero_window()
-        e2, p2 = self._zero_window()
+        ring = WindowRing(W, n, self.device)
         pad = torch.full((C,), W, dtype=torch.int32, device=self.device)
         zero = torch.zeros((C,), dtype=torch.int32, device=self.device)
         rv = torch.zeros((C, n), dtype=torch.int32, device=self.device)
-        window_apply(e, p, pad, zero, pad, zero, rv)
-        window_shift(e, p, 1, e2, p2)
+        ring.shift(1)
+        ring.update((pad, zero, pad, zero, rv))  # both phases of the launch
         flags = torch.zeros((W, n), dtype=torch.bool, device=self.device)
         leader_commit_scan(
-            p2, e2, flags, flags[:, 0].contiguous(), 0,
+            ring.parent, ring.exists, flags, flags[:, 0].contiguous(), 0,
             flags[0].contiguous(),
         )
         if self.device.type == "cuda":

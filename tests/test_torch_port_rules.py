@@ -22,6 +22,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "window_ab.py")
 
 
 def test_no_jax_or_reference_imports_in_the_source():
@@ -131,3 +132,10 @@ def test_chip_smoke_refuses_without_card_or_checkout(no_card, tmp_path):
                          text=True, timeout=240, cwd=str(alone))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_window_ab_refuses_without_card(no_card, tmp_path):
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "window_ab.py"), ROOT],
+                         capture_output=True, text=True, timeout=240, cwd=str(tmp_path))
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

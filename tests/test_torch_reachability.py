@@ -76,21 +76,42 @@ def test_window_apply_matches_jax(seed):
     assert np.array_equal(tp.numpy(), np.asarray(jp))
 
 
+def ring_at(exists, parent, origin):
+    """A CPU :class:`WindowRing` holding the logical window (``exists``,
+    ``parent``) with its origin at physical slot ``origin``, in both
+    mirror copies."""
+    window, n = exists.shape
+    ring = TR.WindowRing(window, n, "cpu")
+    ring.origin = origin
+    slots = (torch.arange(window) + origin) % window
+    for copy in (0, window):
+        ring.exists2[slots + copy] = _t(exists)
+        ring.parent2[slots + copy] = _t(parent)
+    return ring
+
+
+def assert_mirrored(ring):
+    W = ring.window
+    assert torch.equal(ring.exists2[:W], ring.exists2[W:])
+    assert torch.equal(ring.parent2[:W], ring.parent2[W:])
+
+
 @pytest.mark.parametrize("d", [1, 2, 5, W - 1, W, W + 3])
 def test_window_shift_matches_jax(d):
+    """The ring's shift (origin moved, retired slots zeroed on the next
+    read) against JAX's window_shift_op, from an origin whose view wraps."""
     rng = np.random.default_rng(100 + d)
     exists, parent = _window(rng, W, N)
     je, jp = JR.window_shift_op(
         jnp.asarray(exists), jnp.asarray(parent), jnp.int32(d), W
     )
-    out_e = torch.full((W, N), 7, dtype=torch.int32)  # stale spare contents
-    out_p = torch.full((W, N, N), 7, dtype=torch.int32)
-    src_e, src_p = _t(exists.copy()), _t(parent.copy())
-    te, tp = TR.window_shift(src_e, src_p, d, out_e, out_p)
-    assert te is out_e and tp is out_p  # out of place, into the spare pair
-    assert np.array_equal(src_e.numpy(), exists)  # source untouched
-    assert np.array_equal(te.numpy(), np.asarray(je))
-    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    ring = ring_at(exists, parent, origin=(3 * d + 5) % W)
+    ring.shift(d)
+    assert ring.pending == (d < W)  # no launch yet, unless it zeroed all
+    assert np.array_equal(ring.exists.numpy(), np.asarray(je))
+    assert not ring.pending
+    assert np.array_equal(ring.parent.numpy(), np.asarray(jp))
+    assert_mirrored(ring)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -275,6 +296,30 @@ def test_kernel_tusk_commits_like_jax(name, wire_committee):
         np.asarray(jk._dev_exists), np.asarray(jk._dev_parent), device="cpu"
     )
     assert torch.equal(e, tk._dev_exists) and torch.equal(p, tk._dev_parent)
+
+
+@pytest.mark.parametrize("name", ["commit_one", "gc_wrap", "multi_round_burst"])
+def test_kernel_tusk_reads_window_with_clear_pending(name, wire_committee):
+    """After each commit the port's shift is pending (no launch); reading
+    ``_dev_exists`` runs it first and gives JAX's eagerly shifted window."""
+    jc, tc = wire_committee
+    certs, gc_depth = _scenario(name)
+    jk = JR.KernelTusk(jc, gc_depth=gc_depth, fixed_coin=True)
+    tk = TR.KernelTusk(tc, gc_depth=gc_depth, fixed_coin=True, device="cpu")
+    checked = 0
+    for jcert, tcert in zip(certs, _carry(certs)):
+        jk.process_certificate(jcert)
+        if tk.process_certificate(tcert) and tk._ring.pending:
+            e, p = window_from_numpy(
+                np.asarray(jk._dev_exists), np.asarray(jk._dev_parent),
+                device="cpu",
+            )
+            assert torch.equal(tk._dev_exists, e)  # runs the pending clear
+            assert not tk._ring.pending
+            assert torch.equal(tk._dev_parent, p)
+            assert_mirrored(tk._ring)
+            checked += 1
+    assert checked > 0
 
 
 def test_window_from_numpy_validates_shapes():
