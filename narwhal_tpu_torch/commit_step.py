@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .ops import resolve_device
-from .ops.reachability import leader_chain_scan, support_stake
+from .ops.reachability import _leader_row, leader_chain_scan, support_stake
 
 WINDOW = 64
 COMMITTEE = 50
@@ -71,7 +71,11 @@ def make_commit_step(window: int) -> Callable:
     masks.  The step launches two kernels for CUDA tensors (their plain
     twins for CPU tensors), does not synchronise, and returns
     ``(support, committed, reach)``: a 0-d int32 tensor, bool[W] and
-    bool[W, N] on the inputs' device."""
+    bool[W, N] on the inputs' device.  Every anchor slot gives what the
+    reference program gives under ``jax.jit``: the leader row
+    ``anchor_slot - 2`` and the gate's child slot are traced indices, each
+    counted from the end once when negative and then clamped into
+    [0, W)."""
 
     def commit_step(parent, exists, leader_onehot, is_leader_slot, stake,
                     anchor_slot: int, anchor_onehot):
@@ -81,7 +85,7 @@ def make_commit_step(window: int) -> Callable:
             )
         support = support_stake(
             parent, exists, stake, anchor_slot - 2,
-            leader_onehot[anchor_slot - 2],
+            leader_onehot[_leader_row(anchor_slot, window)],
         )
         committed, reach = leader_chain_scan(
             parent, exists, leader_onehot, is_leader_slot, anchor_slot,

@@ -52,7 +52,10 @@ namespace {
 //   2. adds the staged rows, parent[row_w, row_c, :] += row_v, and the
 //      insert entries, exists[ins_w, ins_i] += 1, at logical slots, to both
 //      copies, with atomics whose result is unused (RED).  Counts stay
-//      counts: duplicate rows add, as JAX's scatter-add does.
+//      counts: duplicate rows add, as JAX's scatter-add does.  A slot or
+//      authority index below 0 counts from the end once and what is still
+//      out of range is dropped, as JAX's .at[...].add(mode="drop") does;
+//      the ring's origin applies after that.
 // Without the mirror (buffers of W slots, origin 0, nothing retired) it is
 // the standalone window_apply.
 //
@@ -133,6 +136,12 @@ __device__ __forceinline__ Entry resolve(const UpdateArgs& a, int rw, int rc, in
                                          int ii, int from) {
   const int W = a.W, N = a.N;
   Entry e{-1, -1, false, false};
+  // JAX's indexing first: a slot in [-W, 0) or an authority in [-N, 0)
+  // counts from the end; what is still out of range is dropped.
+  rw += rw < 0 ? W : 0;
+  iw += iw < 0 ? W : 0;
+  rc += rc < 0 ? N : 0;
+  ii += ii < 0 ? N : 0;
   if (rw >= 0 && rw < W && rc >= 0 && rc < N) {
     const int p = a.origin + rw - (a.origin + rw >= W ? W : 0);
     const int d = p - from + (p < from ? W : 0);

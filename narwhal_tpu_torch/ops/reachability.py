@@ -75,9 +75,9 @@ def window_update_plain(exists, parent, flush=None, *, window: int,
                         origin: int = 0, retired: int = 0,
                         clear_slot0: bool = False):
     """Plain twin of :func:`window_update`: the clears by indexing, the
-    flush by index_add_ on flat views, in each copy.  Flush entries whose
-    slot or authority falls outside the window are dropped (the JAX
-    ``mode="drop"``)."""
+    flush by index_add_ on flat views, in each copy.  A flush entry's slot
+    in [-W, 0) or authority in [-N, 0) counts from the end; entries still
+    outside the window are dropped (the JAX ``mode="drop"``)."""
     W = window
     S, N = exists.shape
     copies = S // W
@@ -90,17 +90,26 @@ def window_update_plain(exists, parent, flush=None, *, window: int,
             parent[origin + c * W] = 0
     if flush is None:
         return exists, parent
-    ins_w, ins_i, row_w, row_c, row_v = flush
+    ins_w, ins_i, row_w, row_c = (_wrap(t, n) for t, n in zip(flush[:4], (W, N, W, N)))
+    row_v = flush[4]
     keep = (ins_w >= 0) & (ins_w < W) & (ins_i >= 0) & (ins_i < N)
-    slot = (ins_w[keep].long() + origin) % W
+    slot = (ins_w[keep] + origin) % W
     ones = torch.ones(slot.shape, dtype=exists.dtype, device=dev)
     keep_r = (row_w >= 0) & (row_w < W) & (row_c >= 0) & (row_c < N)
-    slot_r = (row_w[keep_r].long() + origin) % W
+    slot_r = (row_w[keep_r] + origin) % W
     for c in range(copies):
-        exists.view(-1).index_add_(0, (slot + c * W) * N + ins_i[keep].long(), ones)
+        exists.view(-1).index_add_(0, (slot + c * W) * N + ins_i[keep], ones)
         parent.view(S * N, N).index_add_(
-            0, (slot_r + c * W) * N + row_c[keep_r].long(), row_v[keep_r])
+            0, (slot_r + c * W) * N + row_c[keep_r], row_v[keep_r])
     return exists, parent
+
+
+def _wrap(index, n: int):
+    """``index`` as int64 with the entries in [-n, 0) counted from the end,
+    as JAX's ``.at[...]`` normalises a negative index; what is still out
+    of range stays so (and is dropped)."""
+    index = index.long()
+    return torch.where(index < 0, index + n, index)
 
 
 def window_update(exists, parent, flush=None, *, window: int, origin: int = 0,
@@ -113,10 +122,11 @@ def window_update(exists, parent, flush=None, *, window: int, origin: int = 0,
     ``origin`` are zeroed (exists and parent) and, with ``clear_slot0``,
     the parent block of ``origin`` itself; then ``flush`` = (ins_w, ins_i,
     row_w, row_c, row_v) adds exists[ins_w, ins_i] += 1 and
-    parent[row_w, row_c, :] += row_v at logical slots, dropping entries
-    whose slot is outside [0, W).  Counts make duplicate and late
-    (waiting-child repair) rows order-independent.  Returns the two
-    tensors."""
+    parent[row_w, row_c, :] += row_v at logical slots; a slot in [-W, 0)
+    or an authority in [-N, 0) counts from the end, as JAX's indexing
+    does, and entries still outside the window are dropped.  Counts make
+    duplicate and late (waiting-child repair) rows order-independent.
+    Returns the two tensors."""
     W = window
     S, N = exists.shape
     if S not in (W, 2 * W) or not 0 <= origin < W or not 0 <= retired < W:
@@ -150,7 +160,7 @@ def window_update(exists, parent, flush=None, *, window: int, origin: int = 0,
 def window_apply(exists, parent, ins_w, ins_i, row_w, row_c, row_v):
     """One batched insert flush, in place, with the JAX signature:
     exists[ins_w, ins_i] += 1 and parent[row_w, row_c, :] += row_v,
-    dropping entries whose slot is outside [0, W).  The
+    with JAX's negative indices and drops (see :func:`window_update`).  The
     :func:`window_update` launch with origin 0, no mirror and nothing to
     clear.  Returns the same two tensors."""
     return window_update(exists, parent, (ins_w, ins_i, row_w, row_c, row_v),
@@ -392,15 +402,25 @@ def causal_mask_scan(parent, exists, start_slot: int, start_onehot):
 # ---------------------------------------------------------------- support_stake
 
 
+def _dynamic_index(index: int, size: int) -> int:
+    """JAX's rule for a traced index into an axis of ``size``: counted from
+    the end once when negative, then clamped into [0, size) (JAX does not
+    raise on an index out of range)."""
+    if index < 0:
+        index += size
+    return min(max(index, 0), size - 1)
+
+
 def _support_slot(leader_slot: int, window: int) -> int:
     """The child slot the JAX ``support_stake`` reads for ``leader_slot``:
-    its dynamic index ``leader_slot + 1`` counts from the end once when
-    negative and is then clamped into [0, W) (JAX does not raise on an
-    index out of range)."""
-    s = leader_slot + 1
-    if s < 0:
-        s += window
-    return min(max(s, 0), window - 1)
+    its dynamic index ``leader_slot + 1``."""
+    return _dynamic_index(leader_slot + 1, window)
+
+
+def _leader_row(anchor_slot: int, window: int) -> int:
+    """The row of ``leader_onehot`` the JAX commit step passes to its
+    support gate: ``leader_onehot[anchor_slot - 2]`` with a traced index."""
+    return _dynamic_index(anchor_slot - 2, window)
 
 
 def support_stake_plain(parent, exists, stake, leader_slot: int, leader_onehot):

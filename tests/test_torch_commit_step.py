@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import __graft_entry__ as G
@@ -93,6 +94,47 @@ def test_commit_step_equals_jax(seed, window, n):
     if (seed, window, n) == (0, 64, 50):
         # The flagship's values, which chip_smoke.py asks of the card.
         assert (int(support), int(committed.sum()), int(reach.sum())) == (28, 26, 2477)
+
+
+ANCHOR_FIXTURES = [(0, 64, 50), (1, 16, 7)]
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """The reference commit step under ``jax.jit`` (its anchor slot a
+    traced index, as the program is traced in ``__graft_entry__``), one
+    per window."""
+    return {window: jax.jit(G.make_commit_step(window))
+            for window in {w for _, w, _ in ANCHOR_FIXTURES}}
+
+
+# Anchor slots as functions of the window W.
+ANCHORS = {"-W": lambda w: -w, "-1": lambda w: -1, "0": lambda w: 0,
+           "1": lambda w: 1, "W-2": lambda w: w - 2, "W-1": lambda w: w - 1,
+           "W": lambda w: w, "W+1": lambda w: w + 1, "W+2": lambda w: w + 2,
+           "W+5": lambda w: w + 5}
+
+
+@pytest.mark.parametrize("anchor", ANCHORS)
+@pytest.mark.parametrize("seed,window,n", ANCHOR_FIXTURES)
+def test_make_commit_step_matches_jax_at_every_anchor(seed, window, n, anchor,
+                                                      jax_steps):
+    """Anchors inside, at the edges of and outside the window: the leader
+    row ``anchor_slot - 2`` and the gate's child slot follow JAX's rule
+    for a traced index (from the end once when negative, then clamped), so
+    the port returns where a Python index would raise."""
+    anchor_slot = ANCHORS[anchor](window)
+    fixture = G.commit_fixture(seed, window, n)
+    j_support, j_committed, j_reach = jax_steps[window](
+        *fixture[:5], np.int32(anchor_slot), fixture[6])
+    args = [a if isinstance(a, int) else _t(a)
+            for a in CS.commit_fixture(seed, window, n)]
+    args[5] = anchor_slot
+    support, committed, reach = CS.make_commit_step(window)(*args)
+    assert support.dtype == torch.int32 and support.dim() == 0
+    assert int(support) == int(j_support)
+    assert np.array_equal(committed.numpy(), np.asarray(j_committed))
+    assert np.array_equal(reach.numpy(), np.asarray(j_reach))
 
 
 def test_entry_on_cpu_is_the_flagship_fixture():

@@ -50,15 +50,22 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_window_apply_matches_jax(seed):
+@pytest.mark.parametrize("seed,negative", [
+    *(pytest.param(seed, False, id=str(seed)) for seed in range(4)),
+    *(pytest.param(seed, True, id=f"negative-{seed}") for seed in range(4, 10)),
+])
+def test_window_apply_matches_jax(seed, negative):
+    """With ``negative``, slots drawn from [-W-1, W] and authorities from
+    [-N-1, N]: JAX counts an index in [-W, 0) or [-N, 0) from the end and
+    drops what is still out of range."""
     rng = np.random.default_rng(seed)
     exists, parent = _window(rng, W, N)
     C = 64
-    ins_w = rng.integers(0, W + 1, C).astype(np.int32)  # W = padding, dropped
-    ins_i = rng.integers(0, N, C).astype(np.int32)
-    row_w = rng.integers(0, W + 1, C).astype(np.int32)
-    row_c = rng.integers(0, N, C).astype(np.int32)
+    lo_w, lo_n, hi_n = (-W - 1, -N - 1, N + 1) if negative else (0, 0, N)
+    ins_w = rng.integers(lo_w, W + 1, C).astype(np.int32)  # W = padding, dropped
+    ins_i = rng.integers(lo_n, hi_n, C).astype(np.int32)
+    row_w = rng.integers(lo_w, W + 1, C).astype(np.int32)
+    row_c = rng.integers(lo_n, hi_n, C).astype(np.int32)
     row_v = (rng.random((C, N)) < 0.4).astype(np.int32)
     # Two rows hitting the same cell: the scatter must add, not overwrite.
     row_w[1], row_c[1] = row_w[0] % W, row_c[0]
@@ -72,6 +79,27 @@ def test_window_apply_matches_jax(seed):
     out = TR.window_apply(te, tp, _t(ins_w), _t(ins_i), _t(row_w), _t(row_c),
                           _t(row_v))
     assert out[0] is te and out[1] is tp  # in place
+    assert np.array_equal(te.numpy(), np.asarray(je))
+    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    if negative:
+        assert (ins_w < 0).any() and (row_c < 0).any()
+
+
+def test_window_apply_wraps_negative_indices_like_jax():
+    """The fixed case: slot -1 is slot W-1, authority -1 is N-1 and -2 is
+    N-2; slot W is dropped."""
+    window, n = 8, 4
+    ins_w, ins_i = np.array([-1, 2, 8], np.int32), np.array([1, -1, 0], np.int32)
+    row_w, row_c = np.array([-1, 3, 8], np.int32), np.array([0, -2, 1], np.int32)
+    row_v = np.ones((3, n), np.int32)
+    je, jp = JR.window_apply(jnp.zeros((window, n), jnp.int32),
+                             jnp.zeros((window, n, n), jnp.int32),
+                             ins_w, ins_i, row_w, row_c, row_v)
+    te = torch.zeros((window, n), dtype=torch.int32)
+    tp = torch.zeros((window, n, n), dtype=torch.int32)
+    TR.window_apply(te, tp, _t(ins_w), _t(ins_i), _t(row_w), _t(row_c), _t(row_v))
+    assert np.argwhere(te.numpy()).tolist() == [[2, 3], [7, 1]]
+    assert np.argwhere(tp.numpy().any(-1)).tolist() == [[3, 2], [7, 0]]
     assert np.array_equal(te.numpy(), np.asarray(je))
     assert np.array_equal(tp.numpy(), np.asarray(jp))
 

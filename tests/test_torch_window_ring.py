@@ -20,13 +20,15 @@ W, N = 16, 7
 SHIFTS = [0, 1, 2, 5, W - 1, W, W + 3]
 
 
-def _flush(rng, window: int, n: int, rows: int = 40):
+def _flush(rng, window: int, n: int, rows: int = 40, negative: bool = False):
     """A flush of ``rows`` entries at logical slots, with padding (slot
-    ``window``, dropped) and one parent cell hit by two rows."""
-    ins_w = rng.integers(0, window + 1, rows).astype(np.int32)
-    ins_i = rng.integers(0, n, rows).astype(np.int32)
-    row_w = rng.integers(0, window + 1, rows).astype(np.int32)
-    row_c = rng.integers(0, n, rows).astype(np.int32)
+    ``window``, dropped) and one parent cell hit by two rows; with
+    ``negative``, slots from [-W-1, W] and authorities from [-N-1, N]."""
+    lo_w, lo_n, hi_n = (-window - 1, -n - 1, n + 1) if negative else (0, 0, n)
+    ins_w = rng.integers(lo_w, window + 1, rows).astype(np.int32)
+    ins_i = rng.integers(lo_n, hi_n, rows).astype(np.int32)
+    row_w = rng.integers(lo_w, window + 1, rows).astype(np.int32)
+    row_c = rng.integers(lo_n, hi_n, rows).astype(np.int32)
     row_v = (rng.random((rows, n)) < 0.4).astype(np.int32)
     row_w[1], row_c[1] = row_w[0] % window, row_c[0]
     row_w[0] = row_w[1]
@@ -63,6 +65,23 @@ def test_shift_then_update_matches_jax(origin, d):
     ring.shift(d)
     ring.update(tuple(_t(a) for a in flush))
     assert not ring.pending
+    _assert_view(ring, want)
+
+
+@pytest.mark.parametrize("d", [0, 2, W - 1])
+@pytest.mark.parametrize("origin", [0, 3, 9, W - 1])
+def test_shift_then_update_with_negative_indices_matches_jax(origin, d):
+    """A flush whose slots and authorities may be negative (JAX counts
+    [-W, 0) and [-N, 0) from the end) after a shift by d, from origins
+    whose views wrap: the ring applies the origin after that rule."""
+    rng = np.random.default_rng(7000 + 100 * origin + d)
+    exists, parent = _window(rng, W, N)
+    flush = _flush(rng, W, N, rows=64, negative=True)
+    assert (flush[0] < 0).any() and (flush[3] < 0).any()
+    want = _jax_step((jnp.asarray(exists), jnp.asarray(parent)), d, flush)
+    ring = ring_at(exists, parent, origin)
+    ring.shift(d)
+    ring.update(tuple(_t(a) for a in flush))
     _assert_view(ring, want)
 
 
