@@ -9,9 +9,10 @@ at the N=50 committee size, each with the launch counts set to 0 just
 before it and read just after:
 
 - ``commit_step``: the flagship commit step
-  (``narwhal_tpu_torch.commit_step.entry()``, W=64), whose support,
-  committed chain and reach masks must equal the plain twins' and the
-  reference program's values;
+  (``narwhal_tpu_torch.commit_step.entry()``, W=64), one launch a step,
+  whose support, committed chain and reach masks must equal the plain
+  twins' and the reference program's values, then the same launch against
+  its plain twin at other anchors and at N=65, 200 and 1024;
 - ``main_path``: a primary's certificate path — every round's signature
   claims verified in one batch on the ``cuda`` crypto backend, then the
   certificates through ``Consensus(use_kernel=True)`` on the card, whose
@@ -425,6 +426,7 @@ def phase_kernels(dag, keys, device, rng):
     import numpy as np
     import torch
 
+    from narwhal_tpu_torch import commit_step as CS
     from narwhal_tpu_torch.crypto import _ed25519_py
     from narwhal_tpu_torch.ops import LAUNCHES, kernel_fn, ed25519 as E, reachability as R
 
@@ -655,7 +657,9 @@ def phase_kernels(dag, keys, device, rng):
     stake_mism, stake_err = 0, 0.0
     before = dict(LAUNCHES)
     stake = dev(nrng.integers(1, 100, N).astype(np.int32))
-    for leader_slot in range(-1, W):
+    # Every slot, and beyond the window on both sides, where JAX's traced
+    # index counts from the end once and then clamps.
+    for leader_slot in range(-W - 3, W + 2):
         onehot = np.zeros(N, dtype=bool)
         onehot[int(nrng.integers(N))] = True
         a = (p_b, e_b, stake, leader_slot, dev(onehot))
@@ -665,6 +669,7 @@ def phase_kernels(dag, keys, device, rng):
         stake_err = max(stake_err, e1)
     stake_launches = LAUNCHES["support_stake"] - before["support_stake"]
     stake_args = (p_b, e_b, stake, W - 4, dev(np.eye(N, dtype=bool)[0]))
+    one = torch.zeros(1, dtype=torch.int32, device=device)
     records["support_stake"] = dict(
         replaces="narwhal_tpu/ops/reachability.py:267",
         source="narwhal_tpu_torch/csrc/reachability.cu",
@@ -677,9 +682,56 @@ def phase_kernels(dag, keys, device, rng):
         library_ms=None,
         # One child slot's parent rows and exists row, the stake and the
         # leader's one-hot read once; the int32 sum written once.
-        bound_ms=1000 * (N * N + N + 4 * N + N + 4) / HBM_BYTES_PER_S,
+        bound_ms=1000 * support_bytes(N) / HBM_BYTES_PER_S,
         bound_by="bytes",
-        extra=dict(leader_slots=f"-1..{W - 1}"),
+        extra=dict(leader_slots=f"{-W - 3}..{W + 1}",
+                   launch_n50=support_launch(N),
+                   launch_n1024=support_launch(1024),
+                   # A launch's floor on this card: a one-element fill.
+                   fill_one_ms=cuda_ms(lambda: one.fill_(1), 100, prefill=True)),
+    )
+
+    # -- the flagship commit step in one launch, on its own fixture (seed
+    #    0, W = 64, N = 50), against its plain twin (the two plain twins)
+    step, cargs = CS.entry(device)
+    before = dict(LAUNCHES)
+    got, want = R.commit_step_fused(*cargs), R.commit_step_plain(*cargs)
+    commit_mism, commit_err = 0, 0.0
+    for a, b in zip(got, want):
+        m1, e1 = diff(a, b)
+        commit_mism += m1
+        commit_err = max(commit_err, e1)
+    commit_launches = LAUNCHES["commit_step"] - before["commit_step"]
+    c_parent, c_exists, c_leader, c_is_lead, c_stake, c_anchor, c_onehot = cargs
+    row = c_leader[c_anchor - 2]
+    records["commit_step"] = dict(
+        replaces="__graft_entry__.py:61 (make_commit_step: support_stake, "
+                 "narwhal_tpu/ops/reachability.py:267, and leader_chain_scan, :144)",
+        source="narwhal_tpu_torch/csrc/reachability.cu",
+        mismatches=commit_mism,
+        max_abs_err=commit_err,
+        check_launches=commit_launches,
+        ms=cuda_ms(lambda: step(*cargs), 100, prefill=True),
+        host_ms_per_call=host_ms(lambda: step(*cargs), 100),
+        plain_ms=cuda_ms(lambda: R.commit_step_plain(*cargs), 5),
+        library_ms=None,
+        bound_ms=1000 * (chain_scan_bytes(got[1], got[2], c_leader, N) + support_bytes(N)
+                         - 2 * N) / HBM_BYTES_PER_S,
+        bound_by="bytes",
+        extra=dict(
+            launch_w64_n50=scan_launch("commit_step", W, N),
+            registers_by_n={n: scan_launch("commit_step", W, n)["registers_per_thread"]
+                            for n in (1, 33, 65, 129, 257, 513)},
+            # On the same fixture: the step as two launches back to back
+            # (its form before this kernel), and the chain scan alone.
+            ms_two_launches=cuda_ms(lambda: (
+                R.support_stake(c_parent, c_exists, c_stake, c_anchor - 2, row),
+                R.leader_chain_scan(c_parent, c_exists, c_leader, c_is_lead, c_anchor,
+                                    c_onehot)), 100, prefill=True),
+            ms_chain_scan_alone=cuda_ms(lambda: R.leader_chain_scan(
+                c_parent, c_exists, c_leader, c_is_lead, c_anchor, c_onehot),
+                100, prefill=True),
+        ),
     )
 
     # -- the verifier's batch split (the reference's NARWHAL_VERIFY_MESH
@@ -716,15 +768,18 @@ UPDATE_SHAPES = ((64, N_COMMITTEE), (64, 200), (8, 1024))
 UPDATE_ROWS = 256
 
 
-def random_flush(nrng, W: int, N: int, C: int):
+def random_flush(nrng, W: int, N: int, C: int, negative: bool = False):
     """C flush entries at random logical slots in [0, W] (W is padding,
-    dropped); one parent cell is hit by two rows."""
+    dropped); one parent cell is hit by two rows.  With ``negative``,
+    slots from [-W-1, W] and authorities from [-N-1, N] (JAX counts
+    [-W, 0) and [-N, 0) from the end and drops the rest)."""
     import numpy as np
 
-    ins_w = nrng.integers(0, W + 1, C).astype(np.int32)
-    ins_i = nrng.integers(0, N, C).astype(np.int32)
-    row_w = nrng.integers(0, W + 1, C).astype(np.int32)
-    row_c = nrng.integers(0, N, C).astype(np.int32)
+    lo_w, lo_n, hi_n = (-W - 1, -N - 1, N + 1) if negative else (0, 0, N)
+    ins_w = nrng.integers(lo_w, W + 1, C).astype(np.int32)
+    ins_i = nrng.integers(lo_n, hi_n, C).astype(np.int32)
+    row_w = nrng.integers(lo_w, W + 1, C).astype(np.int32)
+    row_c = nrng.integers(lo_n, hi_n, C).astype(np.int32)
     row_v = (nrng.random((C, N)) < 0.7).astype(np.int32)
     row_w[1], row_c[1] = row_w[0] % W, row_c[0]
     row_w[0] = row_w[1]
@@ -817,6 +872,22 @@ def window_update_record(nrng, dev, exists_np, parent_np, flush_np) -> dict:
             if W == 64 and N == N_COMMITTEE:
                 forms[name] = update_form(e2, p2, fl, W, o, retired, slot0, call)
         shapes.append(shape)
+    # Negative slots and authorities: the standalone apply, and the ring
+    # with a clear pending at an origin whose view wraps, at every shape.
+    negative_cases = 0
+    for W, N in UPDATE_SHAPES:
+        e_np, p_np = causal_window(nrng, W, N)
+        neg = [dev(a) for a in random_flush(nrng, W, N, UPDATE_ROWS, negative=True)]
+        ke, kp, pe, pp = (dev(a) for a in (e_np, p_np, e_np, p_np))
+        R.window_apply(ke, kp, *neg)
+        R.window_apply_plain(pe, pp, *neg)
+        check((ke, kp), (pe, pp))
+        e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
+        k2, q2 = dev(e2_np), dev(p2_np)
+        R.window_update(k2, q2, neg, window=W, origin=W - 3, retired=2, clear_slot0=True)
+        check((k2, q2), R.window_update_plain(dev(e2_np), dev(p2_np), neg, window=W,
+                                              origin=W - 3, retired=2, clear_slot0=True))
+        negative_cases += 2
     main = forms["both"]
     return dict(
         replaces="narwhal_tpu/ops/reachability.py:187 (window_shift_op), :163 (window_apply)",
@@ -826,7 +897,8 @@ def window_update_record(nrng, dev, exists_np, parent_np, flush_np) -> dict:
         ms=main["ms"], host_ms_per_call=main["host_ms_per_call"],
         plain_ms=main["plain_ms"], library_ms=main["library_ms"],
         bound_ms=main["bound_ms"], bound_by="bytes",
-        extra=dict(forms=forms, shapes=shapes, apply_no_ring_ms=apply_ms),
+        extra=dict(forms=forms, shapes=shapes, apply_no_ring_ms=apply_ms,
+                   negative_index_cases=negative_cases),
     )
 
 
@@ -898,22 +970,24 @@ def verify_launch_shape(batch: int) -> dict:
 
 
 SCAN_KERNELS = ("leader_commit_scan", "leader_chain_scan", "causal_mask_scan")
+# nt_window_scan_attributes' launches: the three scans and the commit step.
+SCAN_LAUNCHES = SCAN_KERNELS + ("commit_step",)
 # Rows of 3 and 7 words of 32 bits, and a window whose slots fill a
 # block's shared memory one at a time (csrc/window_bits.cuh's chunks).
 SCAN_SHAPES = ((64, 65), (64, 200), (8, 1024))
 
 
 def scan_launch(name: str, W: int, N: int) -> dict:
-    """A scan's launch at (W, N) (``nt_window_scan_attributes``):
-    registers, local and static shared bytes per thread, block size,
-    dynamic shared bytes per block, slots per chunk and blocks (one
-    cluster)."""
+    """A scan's (or the commit step's) launch at (W, N)
+    (``nt_window_scan_attributes``): registers, local and static shared
+    bytes per thread, block size, dynamic shared bytes per block, slots per
+    chunk and blocks (one cluster)."""
     from narwhal_tpu_torch.ops import kernel_fn
 
     out = (ctypes.c_int * 7)()
     rc = kernel_fn("nt_window_scan_attributes", ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.POINTER(ctypes.c_int))(
-        SCAN_KERNELS.index(name), W, N, out)
+        SCAN_LAUNCHES.index(name), W, N, out)
     assert rc == 0, f"nt_window_scan_attributes failed: cudaError {rc}"
     launch = dict(zip(("registers_per_thread", "local_bytes_per_thread",
                        "static_shared_bytes", "block", "dynamic_shared_bytes",
@@ -921,6 +995,29 @@ def scan_launch(name: str, W: int, N: int) -> dict:
     # The design keeps the frontier and the rows in registers.
     assert launch["local_bytes_per_thread"] == 0, (name, W, N, launch)
     return launch
+
+
+def support_launch(N: int) -> dict:
+    """The standalone support gate's launch at N
+    (``nt_support_stake_attributes``): registers, local and static shared
+    bytes per thread, block size and dynamic shared bytes."""
+    from narwhal_tpu_torch.ops import kernel_fn
+
+    out = (ctypes.c_int * 5)()
+    rc = kernel_fn("nt_support_stake_attributes", ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int))(N, out)
+    assert rc == 0, f"nt_support_stake_attributes failed: cudaError {rc}"
+    launch = dict(zip(("registers_per_thread", "local_bytes_per_thread",
+                       "static_shared_bytes", "block", "dynamic_shared_bytes"), out))
+    assert launch["local_bytes_per_thread"] == 0, (N, launch)
+    return launch
+
+
+def support_bytes(n: int) -> int:
+    """Bytes the support gate must move: one child slot's parent rows and
+    exists row, the stake and the leader's one-hot read once; the int32 sum
+    written once."""
+    return n * n + n + 4 * n + n + 4
 
 
 def scan_cycles(fn) -> dict:
@@ -1105,11 +1202,70 @@ async def drive_main_path(committee, signed, unsigned, expected, timings):
     return committed, tusk
 
 
+# The commit step's checks beyond the flagship anchor: anchors inside, at
+# the edges of and outside the window on the flagship fixture, and the
+# scans' larger shapes (rows of 3 and 7 words, and chunks of one slot).
+COMMIT_ANCHORS = (0, 1, "W-1", "W", "W+2", -1)
+COMMIT_SHAPES = ((64, 65), (64, 200), (8, 1024))
+
+
+def commit_step_checks(nrng, dev, flagship) -> list:
+    """``commit_step_fused`` against ``commit_step_plain`` on the card:
+    the flagship fixture at COMMIT_ANCHORS, then at COMMIT_SHAPES random
+    causal windows with random stakes, anchors near the top, in the middle
+    and outside the window.  One record a case: its shape, anchor,
+    mismatches and support; at each of COMMIT_SHAPES also the time of the
+    launch, of the chain scan alone and of the gate alone."""
+    import numpy as np
+
+    from narwhal_tpu_torch.ops import reachability as R
+
+    def anchor_at(a, W):
+        return a if isinstance(a, int) else W + int(a[1:] or 0)
+
+    cases = []
+    W = flagship[1].shape[0]
+    for a in COMMIT_ANCHORS:
+        args = list(flagship)
+        args[5] = anchor_at(a, W)
+        cases.append((W, flagship[1].shape[1], args))
+    for W, N in COMMIT_SHAPES:
+        e_np, p_np = causal_window(nrng, W, N)
+        leader, is_lead = leader_schedule(e_np)
+        stake = nrng.integers(1, 100, N).astype(np.int32)
+        for anchor in (W - 2, W // 2, W):
+            onehot = np.zeros(N, dtype=bool)
+            onehot[int(np.flatnonzero(e_np[min(anchor, W - 1)])[0])] = True
+            cases.append((W, N, [dev(p_np > 0), dev(e_np > 0), dev(leader), dev(is_lead),
+                                 dev(stake), anchor, dev(onehot)]))
+    out = []
+    for W, N, args in cases:
+        got, want = R.commit_step_fused(*args), R.commit_step_plain(*args)
+        out.append(dict(window=W, committee=N, anchor_slot=args[5],
+                        mismatches=sum(diff(a, b)[0] for a, b in zip(got, want)),
+                        support=int(got[0]), committed=int(got[1].sum())))
+        if N != flagship[1].shape[1] and args[5] == W - 2:
+            # The one launch beside the chain scan alone and the gate alone.
+            p, e, lo, isl, stake, anchor, onehot = args
+            out[-1].update(
+                ms=cuda_ms(lambda: R.commit_step_fused(*args), 50, prefill=True),
+                ms_chain_scan_alone=cuda_ms(
+                    lambda: R.leader_chain_scan(p, e, lo, isl, anchor, onehot), 50,
+                    prefill=True),
+                ms_support_stake_alone=cuda_ms(
+                    lambda: R.support_stake(p, e, stake, anchor - 2, lo[anchor - 2]), 50,
+                    prefill=True))
+    return out
+
+
 def phase_commit_step(device):
     """The flagship commit step (``narwhal_tpu_torch.commit_step.entry``)
     at N = 50, W = 64: a few steps with the launch counts set to 0 just
-    before and read just after, the outputs against the plain twins on
-    the card and against the reference program's values."""
+    before and read just after (one ``commit_step`` launch a step), the
+    outputs against the plain twins on the card and against the reference
+    program's values; then the fused launch against its plain twin at
+    other anchors and shapes."""
+    import numpy as np
     import torch
 
     from narwhal_tpu_torch import commit_step as CS
@@ -1124,15 +1280,11 @@ def phase_commit_step(device):
     outs = [step(*args) for _ in range(steps)]
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    want = {name: steps if name in ("support_stake", "leader_chain_scan") else 0
-            for name in launches}
+    want = {name: steps if name == "commit_step" else 0 for name in launches}
     assert launches == want, launches
 
     def plain():
-        support = R.support_stake_plain(parent, exists, stake, anchor_slot - 2,
-                                        leader_onehot[anchor_slot - 2])
-        return (support, *R.leader_chain_scan_plain(
-            parent, exists, leader_onehot, is_leader_slot, anchor_slot, anchor))
+        return R.commit_step_plain(*args)
 
     p_support, p_committed, p_reach = plain()
     mism = 0
@@ -1146,16 +1298,24 @@ def phase_commit_step(device):
     # N = 50), which tests/test_torch_commit_step.py holds on the CPU.
     assert mism == 0, f"commit step != plain twins: {mism} mismatches"
     assert values == (28, 26, 2477), values
+    checks = commit_step_checks(
+        np.random.default_rng(SEED + 2),
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device), args)
+    check_mism = sum(c["mismatches"] for c in checks)
+    assert check_mism == 0, [c for c in checks if c["mismatches"]]
+    assert any(c["support"] for c in checks) and any(c["committed"] for c in checks)
     result = dict(
         phase="commit_step", committee=exists.shape[1], window=exists.shape[0],
         anchor_slot=anchor_slot, steps=steps, mismatches=mism, tolerance=0,
         support=values[0], committed=values[1], reach_cells=values[2],
         launches=launches,
         launches_per_step={name: launches[name] / steps
-                           for name in ("support_stake", "leader_chain_scan")},
+                           for name in ("commit_step", "support_stake",
+                                        "leader_chain_scan")},
         ms_per_step=cuda_ms(lambda: step(*args), 100, prefill=True),
         host_ms_per_call=host_ms(lambda: step(*args), 100),
         plain_ms_per_step=cuda_ms(plain, 5),
+        checks=checks, check_mismatches=check_mism,
     )
     emit(result)
     return result
@@ -1200,9 +1360,11 @@ def phase_main_path(keys, committee, signed, rng):
     want_digests = [bytes(c.digest()) for c in want]
     assert got_digests == want_digests, "kernel commit sequence != Python Tusk"
     assert tusk.python_fallbacks == 0, tusk.python_fallbacks
-    assert all(launches[name] == 0 for name in check.KERNELS), launches
-    assert all(n > 0 for name, n in launches.items()
-               if name not in check.KERNELS), launches
+    # The node's path launches the verifier and the window's update and
+    # scan; the flagship step's launch belongs to the commit_step phase.
+    off_path = check.KERNELS + ("commit_step",)
+    assert all(launches.get(name, 0) == 0 for name in off_path), launches
+    assert all(n > 0 for name, n in launches.items() if name not in off_path), launches
     assert all(n > 0 for n in check.launches.values()), check.launches
     assert check.failures == [], check.failures[:10]
     assert check.counts["chain_checked"] == len(timings["commit_opportunity_s"]) > 0
@@ -1237,7 +1399,7 @@ def phase_main_path(keys, committee, signed, rng):
         launches_per_verify_batch=launches["ed25519_verify"] / len(verify_s),
         launches_per_commit_opportunity={
             name: n / max(1, len(opp)) for name, n in launches.items()
-            if name != "ed25519_verify" and name not in check.KERNELS
+            if name != "ed25519_verify" and name not in off_path
         },
         # The live-window check, outside the timed figures: opportunities
         # checked, and the bool-window kernels' launches per opportunity.
@@ -1308,13 +1470,14 @@ def main() -> int:
     main = phase_main_path(keys, committee, signed, rng)
 
     # Each kernel's launches on the path that carries it: the flagship
-    # commit step for its two kernels, the main path's live-window check
-    # for the cone scan, the node's main path for the others.
+    # commit step for its one launch, the main path's live-window check
+    # for the three bool-window kernels, the node's main path for the
+    # others.
     paths = {name: ("main_path", main["launches"]) for name in records}
-    paths.update(support_stake=("commit_step", step["launches"]),
-                 leader_chain_scan=("commit_step", step["launches"]),
-                 causal_mask_scan=("main_path_live_check",
-                                   main["live_check_launches"]))
+    paths.update(commit_step=("commit_step", step["launches"]),
+                 **{name: ("main_path_live_check", main["live_check_launches"])
+                    for name in ("support_stake", "leader_chain_scan",
+                                 "causal_mask_scan")})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
          "replaces": r["replaces"], "launches": paths[name][1][name],
@@ -1332,8 +1495,14 @@ def main() -> int:
          **({k: r["extra"][k] for k in ("launch_w64_n50", "cycles_w64_n50", "shapes",
                                         "registers_by_n")}
             if name in SCAN_KERNELS else {}),
-         **({k: r["extra"][k] for k in ("forms", "shapes", "apply_no_ring_ms")}
-            if name == "window_update" else {})}
+         **({k: r["extra"][k] for k in ("forms", "shapes", "apply_no_ring_ms",
+                                        "negative_index_cases")}
+            if name == "window_update" else {}),
+         **({k: r["extra"][k] for k in ("launch_n50", "launch_n1024", "fill_one_ms")}
+            if name == "support_stake" else {}),
+         **({k: r["extra"][k] for k in ("launch_w64_n50", "registers_by_n",
+                                        "ms_two_launches", "ms_chain_scan_alone")}
+            if name == "commit_step" else {})}
         for name, r in records.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

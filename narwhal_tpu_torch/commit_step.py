@@ -3,11 +3,12 @@ whole linked-leader chain with its per-slot reach masks.
 
 The port of the commit-step program of ``__graft_entry__.py`` at the
 repository root (``_window``, ``commit_fixture``, ``make_commit_step``,
-``entry``).  :func:`make_commit_step` composes two CUDA kernels of
-``ops/reachability.py`` — one :func:`~.ops.reachability.support_stake`
-launch and one :func:`~.ops.reachability.leader_chain_scan` launch —
-and :func:`entry` sets it up at BASELINE.json's "50-node committee …
-large-DAG stress" size: N = 50 authorities, a window of W = 64 slots.
+``entry``).  :func:`make_commit_step` is one CUDA launch,
+:func:`~.ops.reachability.commit_step_fused`: the chain scan's cluster,
+whose blocks that are idle after the pack run the support gate while one
+warp steps the chain.  :func:`entry` sets it up at BASELINE.json's
+"50-node committee … large-DAG stress" size: N = 50 authorities, a window
+of W = 64 slots.
 
 The fixture generator is a copy of the reference's: it consumes the same
 ``numpy.random.default_rng(seed)`` stream, so its arrays equal the
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from .ops import resolve_device
-from .ops.reachability import _leader_row, leader_chain_scan, support_stake
+from .ops.reachability import commit_step_fused
 
 WINDOW = 64
 COMMITTEE = 50
@@ -68,8 +69,8 @@ def commit_fixture(seed: int, window: int, n: int):
 def make_commit_step(window: int) -> Callable:
     """One Tusk commit decision on tensors: the support of the leader two
     slots below the anchor, then the linked-leader chain and its reach
-    masks.  The step launches two kernels for CUDA tensors (their plain
-    twins for CPU tensors), does not synchronise, and returns
+    masks.  The step is one launch for CUDA tensors (the two plain twins
+    for CPU tensors), does not synchronise, and returns
     ``(support, committed, reach)``: a 0-d int32 tensor, bool[W] and
     bool[W, N] on the inputs' device.  Every anchor slot gives what the
     reference program gives under ``jax.jit``: the leader row
@@ -83,15 +84,8 @@ def make_commit_step(window: int) -> Callable:
             raise ValueError(
                 f"commit_step: window {exists.shape[0]} != {window}"
             )
-        support = support_stake(
-            parent, exists, stake, anchor_slot - 2,
-            leader_onehot[_leader_row(anchor_slot, window)],
-        )
-        committed, reach = leader_chain_scan(
-            parent, exists, leader_onehot, is_leader_slot, anchor_slot,
-            anchor_onehot,
-        )
-        return support, committed, reach
+        return commit_step_fused(parent, exists, leader_onehot, is_leader_slot,
+                                 stake, anchor_slot, anchor_onehot)
 
     return commit_step
 

@@ -9,6 +9,10 @@
 //                              bool inputs, with the per-slot reach masks)
 //   causal_mask_scan        <- causal_mask_scan
 //   support_stake           <- support_stake
+//   commit_step             <- support_stake and leader_chain_scan traced as
+//                              one program (__graft_entry__.make_commit_step):
+//                              the chain scan's launch, with the support
+//                              gate on its idle blocks
 //
 // The commit path's window is int32 presence COUNTS: exists[W][N] and
 // parent[W][N][N], where parent[w][n][m] != 0 means certificate (w, n)
@@ -21,9 +25,10 @@
 // carries.  The update and support kernels are bound by launch latency;
 // the three scans by the latency of their W dependent steps.  The design
 // answers: the launch count (one update launch per commit opportunity for
-// both the flush and the pending shift, one for the support gate, one for
-// a whole W-step scan, whose steps loop inside the kernel instead of one
-// launch per step), a shift that moves no counts (the ring's origin moves
+// both the flush and the pending shift, one for a whole W-step scan, whose
+// steps loop inside the kernel instead of one launch per step, and one for
+// the flagship commit step, whose support gate runs beside its scan), a
+// shift that moves no counts (the ring's origin moves
 // and only the retired slots are zeroed), and inside the scans a step with
 // no memory round trip and no block barrier: a cluster of blocks packs
 // the window into bits in shared memory first, then one warp steps the
@@ -33,6 +38,9 @@
 // returns the cudaError_t of the launch.
 
 #include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "window_bits.cuh"
@@ -224,14 +232,8 @@ __global__ void __launch_bounds__(kUpdateThreads)
 // (causal_mask_scan, kCone: the start is ORed in and the frontier only
 // accumulates).  NW is the number of 32-bit words of a row, rounded up to
 // a power of two; the launch picks it from N.  All warps pack a chunk of
-// slots into shared memory, then warp 0 steps it.  The block is 512
-// threads up to NW = 16 and 256 at 32, so that warp 0's frontier and row
-// words (2 * NW registers and more) fit the registers a thread may have
-// at that block size and nothing spills to local memory.
-__host__ __device__ constexpr int scan_block(int nw) {
-  return nw <= 16 ? 512 : 256;
-}
-
+// slots into shared memory, then warp 0 steps it; the block is
+// ntw::scan_block(NW) threads.
 //
 // The pack is spread over a cluster of kClusterBlocks blocks on as many
 // SMs: one SM alone pulls the int32 window from L2 too slowly (on an H100
@@ -239,7 +241,8 @@ __host__ __device__ constexpr int scan_block(int nw) {
 // share of the groups straight into the first block's shared memory
 // (distributed shared memory), and the first block's warp 0 steps the
 // scan.  The cluster barrier takes the place of the block barrier.
-constexpr int kClusterBlocks = 8;
+using ntw::kClusterBlocks;
+using ntw::scan_block;
 
 // The last scan's cycles (window_scan): pack, scan, whole, chunks.
 __device__ uint64_t scan_cycles[4];
@@ -259,37 +262,111 @@ __global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(scan_bl
       rank == 0 && threadIdx.x == 0 ? scan_cycles : nullptr);
 }
 
-// The f+1 support gate: the stake of the certificates at slot s+1 (s =
-// leader_slot) that exist and cite the leader.  One block, one thread per
-// child m, then a block sum.  The slot index follows the JAX program's
-// dynamic index exactly: s+1 below 0 counts from the end once, and the
-// result is clamped into [0, W).
-__global__ void support_stake_kernel(const bool* __restrict__ parent,
-                                     const bool* __restrict__ exists,
-                                     const int32_t* __restrict__ stake,
-                                     int leader_slot,
-                                     const bool* __restrict__ leader_onehot,
-                                     int32_t* __restrict__ out, int W, int N) {
-  __shared__ int32_t warp_sums[32];
-  const int m = threadIdx.x;
-  int s = leader_slot + 1;
-  if (s < 0) s += W;
-  s = s < 0 ? 0 : (s >= W ? W - 1 : s);
-  int32_t v = 0;
-  if (m < N && exists[(int64_t)s * N + m]) {
-    const bool* row = parent + ((int64_t)s * N + m) * N;
-    bool vote = false;
-    for (int n = 0; n < N; ++n) vote |= row[n] && leader_onehot[n];
-    if (vote) v = stake[m];
+// The split cluster barrier (PTX barrier.cluster): every thread of the
+// cluster arrives once in a phase, and a thread that waits returns when all
+// have arrived; an arrive with release orders the thread's earlier writes,
+// distributed shared memory atomics included, before the waiter's reads.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The flagship commit step in one launch (JAX: support_stake and
+// leader_chain_scan traced as one program, __graft_entry__.make_commit_step):
+// leader_chain_scan's cluster and body, then the f+1 support gate
+// (ntw::support_gate) on the blocks that are idle after the last pack,
+// while warp 0 steps the chain.  window_scan returns to every warp but
+// warp 0 right after the last pack's cluster barrier; there
+//   - the warps of blocks 1..7 whose gate index k = 7 * (warp in block) +
+//     rank - 1 is below the number of row groups run the gate, add their
+//     part into one word of the first block's shared memory (an atomic
+//     through distributed shared memory; the word is zeroed before the
+//     first pack's barrier), and arrive at the cluster barrier with
+//     release;
+//   - warp 1 of the first block arrives and waits, then writes `support`;
+//   - every other thread arrives and leaves;
+// and warp 0 arrives once its last step is done.  So nothing is added to
+// the steps, and neither they nor the support need a second launch or a
+// memset.  The gate runs after the
+// LAST pack, the one place where nothing waits for it: where the window
+// is scanned in chunks the idle blocks pack every chunk, and a gate in an
+// earlier window would hold back the next pack whenever it outlasted the
+// steps of the chunk before.  The word lies behind the scan's (and the
+// gate's) dynamic shared memory: static shared memory would move the
+// dynamic words off the alignment the pack's stores have in the scan
+// alone.
+template <int NW>
+__device__ __forceinline__ void commit_gate(const ntw::GateArgs& gate, uint32_t* smem,
+                                            int32_t* word, int32_t* support, int rank,
+                                            int block_warp, int lane) {
+  if (rank == 0) {
+    cluster_arrive_relaxed();
+    if (block_warp == 1) {
+      cluster_wait();
+      if (lane == 0) *support = *word;
+    }
+    return;
   }
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warps = blockDim.x / 32;
-  if ((m & 31) == 0) warp_sums[m >> 5] = v;
+  const int k = (kClusterBlocks - 1) * block_warp + rank - 1;
+  if (k < ntw::gate_groups(gate.N)) {
+    const uint32_t part =
+        ntw::support_gate<NW>(ntw::WarpGroup{lane}, k, ntw::gate_warps(NW), gate,
+                              smem + block_warp * ntw::gate_words(gate.N, NW));
+    if (lane == 0 && part != 0) atomicAdd(word, (int32_t)part);
+    cluster_arrive_release();
+  } else {
+    cluster_arrive_relaxed();
+  }
+}
+
+template <int NW>
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(scan_block(NW), 1)
+    commit_step_kernel(ntw::ScanArgs<uint8_t> a, ntw::GateArgs gate, int32_t* support,
+                       int S, int word_offset) {
+  extern __shared__ uint32_t scan_smem[];
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int warps = (int)(blockDim.x >> 5), block_warp = (int)(threadIdx.x >> 5);
+  const int lane = (int)(threadIdx.x & 31), rank = (int)cluster.block_rank();
+  int32_t* word = reinterpret_cast<int32_t*>(scan_smem + word_offset);
+  if (rank == 0 && threadIdx.x == 32) *word = 0;
+  ntw::window_scan<uint8_t, NW, false>(
+      ntw::WarpGroup{lane}, rank * warps + block_warp, kClusterBlocks * warps, a, S,
+      scan_smem, cluster.map_shared_rank(scan_smem, 0),
+      rank == 0 && threadIdx.x == 0 ? scan_cycles : nullptr);
+  if (rank == 0 && block_warp == 0) {
+    cluster_arrive_relaxed();  // the steps are done
+    return;
+  }
+  commit_gate<NW>(gate, scan_smem, cluster.map_shared_rank(word, 0), support, rank,
+                  block_warp, lane);
+}
+
+// The standalone support gate (JAX support_stake): one block of one warp a
+// group of 32 rows, up to kGateBlockWarps, each running ntw::support_gate
+// on its own shared memory; the warps' parts meet behind one barrier.  It
+// replaces one thread a row walking the row's N bytes one by one.
+constexpr int kGateBlockWarps = 16;
+
+template <int NW>
+__global__ void __launch_bounds__(32 * kGateBlockWarps)
+    support_stake_kernel(ntw::GateArgs a, int32_t* __restrict__ out) {
+  extern __shared__ uint32_t gate_smem[];
+  __shared__ uint32_t parts[kGateBlockWarps];
+  const int lane = (int)(threadIdx.x & 31), warp = (int)(threadIdx.x >> 5);
+  const int warps = (int)(blockDim.x >> 5);
+  const uint32_t part = ntw::support_gate<NW>(
+      ntw::WarpGroup{lane}, warp, warps, a, gate_smem + warp * ntw::gate_words(a.N, NW));
+  if (lane == 0) parts[warp] = part;
   __syncthreads();
-  if (m < 32) {
-    v = m < warps ? warp_sums[m] : 0;
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (m == 0) *out = v;
+  if (warp == 0) {
+    const uint32_t sum = __reduce_add_sync(0xffffffffu, lane < warps ? parts[lane] : 0u);
+    if (lane == 0) *out = (int32_t)sum;
   }
 }
 
@@ -300,6 +377,7 @@ extern "C" int nt_window_update(void* exists, void* parent, const void* ins_w,
                                 const void* row_c, const void* row_v, int W, int N,
                                 int C, int origin, int mirror, int retired,
                                 int clear_slot0, void* stream) {
+
   if (N < 1 || N > 1024 || W < 1 || C < 0 || origin < 0 || origin >= W ||
       retired < 0 || retired >= W || (mirror != 0 && mirror != 1) ||
       (int64_t)(1 + mirror) * W * N * N > INT32_MAX)
@@ -329,55 +407,130 @@ static int smem_optin_bytes(int* bytes) {
   return (int)rc;
 }
 
+// Calls f with std::integral_constant<int, NW>, NW the row words of N.
+template <class F>
+static int by_nw(int n, F&& f) {
+  switch (ntw::nw_class(n)) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    default: return f(std::integral_constant<int, 32>{});
+  }
+}
+
+// Launches `kernel` with `smem` dynamic shared bytes (above the 48 KB a
+// launch gets without it only after cudaFuncSetAttribute), or with `attrs`
+// non-null only fills attrs[0..2 + extra]: registers, local bytes and static
+// shared bytes per thread (cudaFuncGetAttributes), then `extra` values.
+template <class K, class... Args>
+static int launch_or_describe(K kernel, dim3 grid, int block, int64_t smem,
+                              cudaStream_t stream, int* attrs,
+                              std::initializer_list<int> extra, Args... args) {
+  if (attrs != nullptr) {
+    cudaFuncAttributes fa;
+    const int rc = (int)cudaFuncGetAttributes(&fa, kernel);
+    if (rc != 0) return rc;
+    attrs[0] = fa.numRegs;
+    attrs[1] = (int)fa.localSizeBytes;
+    attrs[2] = (int)fa.sharedSizeBytes;
+    int i = 3;
+    for (int v : extra) attrs[i++] = v;
+    return 0;
+  }
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != 0) return rc;
+  }
+  kernel<<<grid, block, (size_t)smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // A scan is one cluster of kClusterBlocks blocks of scan_block(NW)
 // threads over chunks of as many slots as fit in the card's shared
-// memory, with the bytes set by cudaFuncSetAttribute above the 48 KB a
-// launch gets without it.  Launches the scan, or with `attrs` non-null
-// only fills attrs[0..6]:
-// registers, local bytes and static shared bytes per thread
-// (cudaFuncGetAttributes), block size, dynamic shared bytes per block,
-// slots per chunk, blocks (one cluster).
+// memory.  Launches the scan, or with `attrs` non-null only fills
+// attrs[0..6]: registers, local bytes and static shared bytes per thread,
+// block size, dynamic shared bytes per block, slots per chunk, blocks (one
+// cluster).
 template <typename T, int NW, bool kCone>
 static int launch_scan_nw(const ntw::ScanArgs<T>& a, cudaStream_t stream,
                           int* attrs) {
-  const auto kernel = window_scan_kernel<T, NW, kCone>;
   int limit;
-  int rc = smem_optin_bytes(&limit);
+  const int rc = smem_optin_bytes(&limit);
   if (rc != 0) return rc;
   const int block = scan_block(NW);
   const int slots = ntw::chunk_slots(a.W, a.N, NW, limit);
   const int64_t smem = 4 * ntw::smem_words(slots, a.N, NW);
   if (smem > limit) return (int)cudaErrorInvalidValue;
-  if (attrs != nullptr) {
-    cudaFuncAttributes fa;
-    rc = (int)cudaFuncGetAttributes(&fa, kernel);
-    if (rc != 0) return rc;
-    const int out[7] = {fa.numRegs, (int)fa.localSizeBytes, (int)fa.sharedSizeBytes,
-                        block, (int)smem, slots, kClusterBlocks};
-    for (int i = 0; i < 7; ++i) attrs[i] = out[i];
-    return 0;
-  }
-  if (smem > 48 * 1024) {
-    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-    if (rc != 0) return rc;
-  }
-  kernel<<<kClusterBlocks, block, (size_t)smem, stream>>>(a, slots);
-  return (int)cudaGetLastError();
+  return launch_or_describe(window_scan_kernel<T, NW, kCone>, kClusterBlocks, block,
+                            smem, stream, attrs,
+                            {block, (int)smem, slots, kClusterBlocks}, a, slots);
 }
 
 template <typename T, bool kCone>
 static int launch_scan(const ntw::ScanArgs<T>& a, void* stream, int* attrs) {
   if (a.N < 1 || a.N > 1024 || a.W < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (ntw::nw_class(a.N)) {
-    case 1: return launch_scan_nw<T, 1, kCone>(a, st, attrs);
-    case 2: return launch_scan_nw<T, 2, kCone>(a, st, attrs);
-    case 4: return launch_scan_nw<T, 4, kCone>(a, st, attrs);
-    case 8: return launch_scan_nw<T, 8, kCone>(a, st, attrs);
-    case 16: return launch_scan_nw<T, 16, kCone>(a, st, attrs);
-    default: return launch_scan_nw<T, 32, kCone>(a, st, attrs);
-  }
+  return by_nw(a.N, [&](auto nw) {
+    return launch_scan_nw<T, decltype(nw)::value, kCone>(a, (cudaStream_t)stream, attrs);
+  });
+}
+
+// The commit step's launch: the chain scan's, with shared memory for the
+// gate's warps too (each warp of an idle block that holds a row group
+// packs it in its block's own shared memory) and, behind both, the word of
+// the support sum.
+template <int NW>
+static int launch_commit_nw(const ntw::ScanArgs<uint8_t>& a, const ntw::GateArgs& gate,
+                            int32_t* support, cudaStream_t stream, int* attrs) {
+  int limit;
+  const int rc = smem_optin_bytes(&limit);
+  if (rc != 0) return rc;
+  const int block = scan_block(NW);
+  const int slots = ntw::chunk_slots(a.W, a.N, NW, limit - 4);
+  const int gate_block_warps =
+      (ntw::gate_groups(a.N) + kClusterBlocks - 2) / (kClusterBlocks - 1);
+  const int64_t gate_words = (int64_t)gate_block_warps * ntw::gate_words(a.N, NW);
+  const int64_t scan_words = ntw::smem_words(slots, a.N, NW);
+  const int64_t words = scan_words > gate_words ? scan_words : gate_words;
+  const int64_t smem = 4 * (words + 1);
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  return launch_or_describe(commit_step_kernel<NW>, kClusterBlocks, block, smem, stream,
+                            attrs, {block, (int)smem, slots, kClusterBlocks}, a, gate,
+                            support, slots, (int)words);
+}
+
+static int launch_commit(const ntw::ScanArgs<uint8_t>& a, const ntw::GateArgs& gate,
+                         int32_t* support, void* stream, int* attrs) {
+  if (a.N < 1 || a.N > 1024 || a.W < 1 || gate.slot < 0 || gate.slot >= a.W)
+    return (int)cudaErrorInvalidValue;
+  return by_nw(a.N, [&](auto nw) {
+    return launch_commit_nw<decltype(nw)::value>(a, gate, support, (cudaStream_t)stream,
+                                                 attrs);
+  });
+}
+
+// The standalone gate: one block of min(row groups, kGateBlockWarps) warps.
+// Launches, or with `attrs` non-null only fills attrs[0..4]: registers,
+// local and static shared bytes per thread, block size, dynamic shared
+// bytes.
+static int launch_support(const ntw::GateArgs& a, int W, int32_t* out, void* stream,
+                          int* attrs) {
+  if (a.N < 1 || a.N > 1024 || W < 1 || a.slot < 0 || a.slot >= W)
+    return (int)cudaErrorInvalidValue;
+  int limit;
+  const int rc = smem_optin_bytes(&limit);
+  if (rc != 0) return rc;
+  return by_nw(a.N, [&](auto nw) {
+    constexpr int NW = decltype(nw)::value;
+    const int groups = ntw::gate_groups(a.N);
+    const int warps = groups < kGateBlockWarps ? groups : kGateBlockWarps;
+    const int64_t smem = 4LL * warps * ntw::gate_words(a.N, NW);
+    if (smem > limit - 4 * kGateBlockWarps) return (int)cudaErrorInvalidValue;
+    return launch_or_describe(support_stake_kernel<NW>, 1, 32 * warps, smem,
+                              (cudaStream_t)stream, attrs, {32 * warps, (int)smem}, a, out);
+  });
 }
 
 extern "C" int nt_leader_commit_scan(const void* parent, const void* exists,
@@ -415,6 +568,38 @@ extern "C" int nt_causal_mask_scan(const void* parent, const void* exists,
   return launch_scan<uint8_t, true>(a, stream, nullptr);
 }
 
+// The flagship commit step: the chain scan's outputs, and in `support` the
+// gate's stake sum of child slot gate_slot against row leader_row of
+// leader_onehot (both resolved by the caller with JAX's index rule).
+extern "C" int nt_commit_step(const void* parent, const void* exists,
+                              const void* leader_onehot, const void* is_leader_slot,
+                              const void* anchor_onehot, int anchor_slot,
+                              const void* stake, int gate_slot, int leader_row,
+                              void* support, void* committed, void* reach, int W,
+                              int N, void* stream) {
+  if (leader_row < 0 || leader_row >= W) return (int)cudaErrorInvalidValue;
+  const ntw::ScanArgs<uint8_t> a{
+      (const uint8_t*)parent, (const uint8_t*)exists, (const uint8_t*)leader_onehot,
+      (const uint8_t*)is_leader_slot, (const uint8_t*)anchor_onehot, anchor_slot,
+      (uint8_t*)committed, (uint8_t*)reach, W, N};
+  const ntw::GateArgs gate{(const uint8_t*)parent, (const uint8_t*)exists,
+                           (const int32_t*)stake,
+                           (const uint8_t*)leader_onehot + (int64_t)leader_row * N,
+                           gate_slot, N};
+  return launch_commit(a, gate, (int32_t*)support, stream, nullptr);
+}
+
+// The stake of the certificates at child slot `slot` (resolved by the
+// caller with JAX's index rule) that exist and cite the leader.
+extern "C" int nt_support_stake(const void* parent, const void* exists,
+                                const void* stake, int slot,
+                                const void* leader_onehot, void* out, int W,
+                                int N, void* stream) {
+  const ntw::GateArgs a{(const uint8_t*)parent, (const uint8_t*)exists,
+                        (const int32_t*)stake, (const uint8_t*)leader_onehot, slot, N};
+  return launch_support(a, W, (int32_t*)out, stream, nullptr);
+}
+
 // The cycles of the last scan launched, once it has finished (the caller
 // synchronizes): out[0..3] = pack (up to the barrier that ends it), scan,
 // whole, chunks, in the clock cycles of the SM of the cluster's first
@@ -424,8 +609,8 @@ extern "C" int nt_window_scan_cycles(unsigned long long* out) {
 }
 
 // The launch of scan `which` (0 leader_commit_scan, 1 leader_chain_scan,
-// 2 causal_mask_scan) at (W, N), without launching: out[0..6] as
-// launch_scan_nw fills them.
+// 2 causal_mask_scan, 3 the commit step) at (W, N), without launching:
+// out[0..6] as launch_scan_nw fills them.
 extern "C" int nt_window_scan_attributes(int which, int W, int N, int* out) {
   ntw::ScanArgs<int32_t> c{};
   ntw::ScanArgs<uint8_t> b{};
@@ -435,18 +620,20 @@ extern "C" int nt_window_scan_attributes(int which, int W, int N, int* out) {
     case 0: return launch_scan<int32_t, false>(c, nullptr, out);
     case 1: return launch_scan<uint8_t, false>(b, nullptr, out);
     case 2: return launch_scan<uint8_t, true>(b, nullptr, out);
+    case 3: {
+      ntw::GateArgs gate{};
+      gate.N = N;
+      return launch_commit(b, gate, nullptr, nullptr, out);
+    }
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int nt_support_stake(const void* parent, const void* exists,
-                                const void* stake, int leader_slot,
-                                const void* leader_onehot, void* out, int W,
-                                int N, void* stream) {
-  if (N < 1 || N > 1024 || W < 1) return (int)cudaErrorInvalidValue;
-  const int block = (N + 31) / 32 * 32;
-  support_stake_kernel<<<1, block, 0, (cudaStream_t)stream>>>(
-      (const bool*)parent, (const bool*)exists, (const int32_t*)stake,
-      leader_slot, (const bool*)leader_onehot, (int32_t*)out, W, N);
-  return (int)cudaGetLastError();
+// The standalone support_stake launch at N, without launching: out[0..4] =
+// registers, local and static shared bytes per thread, block size, dynamic
+// shared bytes.
+extern "C" int nt_support_stake_attributes(int N, int* out) {
+  ntw::GateArgs a{};
+  a.N = N;
+  return launch_support(a, 1, nullptr, nullptr, out);
 }

@@ -32,6 +32,12 @@
 //    committed[w] and the reach (mask) row straight to global memory, and
 //    nothing waits on those stores.
 //
+// 3. The f+1 support gate (support_gate below), the JAX support_stake, on
+//    warps of their own: in the flagship commit step's one launch the
+//    blocks of the cluster that are idle after the last pack run it while
+//    warp 0 steps the scan (window_scan returns to them there), and the
+//    standalone support_stake kernel is one block of it.
+//
 // A window too large for shared memory is scanned in chunks of S slots
 // (as many as fit), the frontier carried across chunks in warp 0's
 // registers: pack, barrier, scan, and a barrier before the next chunk's
@@ -80,6 +86,14 @@ NTW_HD int nw_class(int n) {
 
 // The masks a slot keeps beside its parent rows (see pack_masks).
 constexpr int kMasks = 3;
+
+// The launch of a scan on the card (csrc/reachability.cu): one cluster of
+// kClusterBlocks blocks of scan_block(NW) threads.  The block is 512
+// threads up to NW = 16 and 256 at 32, so that warp 0's frontier and row
+// words (2 * NW registers and more) fit the registers a thread may have at
+// that block size and nothing spills to local memory.
+constexpr int kClusterBlocks = 8;
+NTW_HD constexpr int scan_block(int nw) { return nw <= 16 ? 512 : 256; }
 
 // Shared memory of a chunk of S slots, in 32-bit words:
 //   M[S][kMasks][NW] | F
@@ -208,6 +222,20 @@ struct WarpGroup {
     if (lane_ % kLanesPerWord == 0) words[lane_ / kLanesPerWord] = v;
 #endif
   }
+  // The lanes' sum (mod 2^32, as JAX's int32 sum wraps).
+  NTW_HD uint32_t add_all(const uint32_t (&v)[1]) const {
+#ifdef __CUDA_ARCH__
+    return __reduce_add_sync(0xffffffffu, v[0]);
+#else
+    return v[0];
+#endif
+  }
+  // Orders the warp's shared memory stores before its lanes' loads.
+  NTW_HD void sync_warp() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+  }
   // A barrier of the whole cluster, which also makes every block's
   // distributed shared memory stores visible to the first block.
   NTW_HD void sync() const {
@@ -244,6 +272,12 @@ struct HostGroup {
       words[k] = v;
     }
   }
+  uint32_t add_all(const uint32_t (&v)[32]) const {
+    uint32_t m = 0;
+    for (int q = 0; q < 32; ++q) m += v[q];
+    return m;
+  }
+  void sync_warp() const {}
   void sync() const {}
 };
 
@@ -443,10 +477,11 @@ NTW_HD void scan_chunk(const G& g, const ScanArgs<T>& a, int lo, int hi,
 // first block, which the other blocks reach through distributed shared
 // memory), then warp 0 (of the first block) steps it from `smem`, the
 // same memory seen locally.  Every warp runs every iteration and reaches
-// its barriers; the frontier stays in warp 0's registers.  With `cycles`
+// its barriers; the frontier stays in warp 0's registers.  Every warp but
+// warp 0 returns right after the last chunk's pack barrier.  With `cycles`
 // not null (one thread of the first block) it records, in its SM's clock
-// cycles, the pack of all chunks up to the barrier that ends it, the
-// scan of all chunks, the whole, and the number of chunks.
+// cycles, the pack of all chunks up to the barrier that ends it, the scan
+// of all chunks, the whole, and the number of chunks.
 template <typename T, int NW, bool kCone, class G>
 NTW_HD void window_scan(const G& g, int warp, int nwarps, const ScanArgs<T>& a,
                         int S, uint32_t* smem, uint32_t* pack,
@@ -490,6 +525,154 @@ NTW_HD void window_scan(const G& g, int warp, int nwarps, const ScanArgs<T>& a,
     cycles[2] = t_end - t_start;
     cycles[3] = (uint64_t)chunks;
   }
+}
+
+// ------------------------------------------------------------ the support gate
+//
+// The f+1 support gate of the JAX support_stake: the stake of the
+// certificates at child slot s that exist and cite the leader,
+//   sum over m of stake[m] where exists[s][m] and
+//   any over n of (parent[s][m][n] and leader[n]).
+// The rows m are split over warps in groups of 32 (group i holds rows
+// 32i .. 32i+31, lane q row 32i + q; warp k of nwarps takes groups k,
+// k + nwarps, ...).  A warp, per group:
+//   1. loads its lanes' exists[s][m] and stake[m] (and, once, the leader
+//      row) first, so that those loads are in flight with the rows';
+//   2. packs the group's rows, 32 N contiguous bytes of the slot, into a
+//      flat bit string F in its own shared memory (pack_gate_rows: 16-byte
+//      loads, coalesced across the warp, all issued before any is used);
+//   3. cuts each lane's row out of F with funnel shifts (NW + 1 words),
+//      as the step does, and ANDs it with the leader's NW words, made
+//      once with ballots (no bit at or past N, so bits past a row's end,
+//      the next row's or junk behind the group, meet no leader bit);
+//   4. masks with exists and sums stake over its lanes.
+// Every input is read once, straight from global memory, so the gate
+// needs none of a scan's chunk logic.  The sum is mod 2^32, as JAX's int32
+// sum; the warp returns its part (the callers add the warps' parts).
+struct GateArgs {
+  const uint8_t* parent;  // [W][N][N]
+  const uint8_t* exists;  // [W][N]
+  const int32_t* stake;   // [N]
+  const uint8_t* leader;  // [N]
+  int slot;               // the child slot s, in [0, W) (the caller's rule)
+  int N;
+};
+
+NTW_HD int gate_groups(int n) { return (n + 31) / 32; }
+
+// Shared words of one warp's F: a group's 32 N elements from a0 on in whole
+// groups of 512, up to 15 elements of alignment slack in front, and the
+// NW + 1 words the last row's cut may read.
+NTW_HD int gate_words(int n, int nw) { return (32 * n + 15 + 511) / 512 * 16 + nw + 1; }
+
+// The warps of the flagship commit step's cluster that run the gate: those
+// of every block but the first (which holds warp 0).
+NTW_HD constexpr int gate_warps(int nw) {
+  return (kClusterBlocks - 1) * (scan_block(nw) / 32);
+}
+
+// The gate packs a group's rows with whole 16-byte loads, its first and
+// last vectors too: a vector that holds an element of [e0, e1) lies in the
+// same aligned 16 bytes as that element, so inside the tensor's allocation
+// (CUDA's allocators align and round allocations to far more than 16
+// bytes), and its bits outside [e0, e1) are cleared.  A vector wholly past
+// e1 is not loaded.  On the card a lane issues its kGateBatch loads before
+// it reads any, so that one round trip to memory serves them all.  The
+// host reads only the elements inside.
+constexpr int kGateBatch = 4;
+
+// Bits of the elements e .. e+15 whose bits `b` are, those outside
+// [e0, e1) cleared (e0 - e < 16: a0 is e0 rounded down).
+NTW_HD uint32_t clip_bits(uint32_t b, int64_t e, int64_t e0, int64_t e1) {
+  if (e >= e1) return 0;
+  if (e < e0) b &= ~0u << (e0 - e);
+  if (e1 - e < 16) b &= (1u << (e1 - e)) - 1u;
+  return b;
+}
+
+template <class G>
+NTW_HD void pack_gate_rows(const G& g, const uint8_t* src, int64_t a0, int64_t e0,
+                           int64_t e1, uint32_t* F) {
+  constexpr int kPer = per_lane<uint8_t>(), kGroup = 32 * kPer;
+  const int64_t groups = (e1 - a0 + kGroup - 1) / kGroup;
+  for (int64_t k0 = 0; k0 < groups; k0 += kGateBatch) {
+    uint32_t bits[kGateBatch][G::kLanes];
+#ifdef __CUDA_ARCH__
+    uint4 raw[kGateBatch];
+    NTW_UNROLL
+    for (int u = 0; u < kGateBatch; ++u) {
+      const int64_t e = a0 + kGroup * (k0 + u) + kPer * g.lane(0);
+      raw[u] = e < e1 ? __ldg(reinterpret_cast<const uint4*>(src + e)) : make_uint4(0, 0, 0, 0);
+    }
+    NTW_UNROLL
+    for (int u = 0; u < kGateBatch; ++u) {
+      const uint32_t b = byte_bits(raw[u].x) | byte_bits(raw[u].y) << 4 |
+                         byte_bits(raw[u].z) << 8 | byte_bits(raw[u].w) << 12;
+      bits[u][0] = clip_bits(b, a0 + kGroup * (k0 + u) + kPer * g.lane(0), e0, e1);
+    }
+#else
+    for (int u = 0; u < kGateBatch; ++u)
+      for (int q = 0; q < G::kLanes; ++q)
+        bits[u][q] = edge_bits(src, a0 + kGroup * (k0 + u) + kPer * g.lane(q), e0, e1);
+#endif
+    NTW_UNROLL
+    for (int u = 0; u < kGateBatch; ++u)
+      if (k0 + u < groups) g.template store_lane_bits<kPer>(bits[u], F + kPer * (k0 + u));
+  }
+}
+
+template <int NW, class G>
+NTW_HD uint32_t support_gate(const G& g, int warp, int nwarps, const GateArgs& a,
+                             uint32_t* F) {
+  constexpr int kL = G::kLanes;
+  const int N = a.N;
+  const int groups = gate_groups(N);
+  uint32_t sum[kL];
+  for (int q = 0; q < kL; ++q) sum[q] = 0;
+  if (warp >= groups) return 0;
+  // The loads first, no value read until the rows' loads are issued too.
+  uint8_t lead_raw[NW][kL];
+  NTW_UNROLL
+  for (int j = 0; j < NW; ++j)
+    for (int q = 0; q < kL; ++q) {
+      const int n = 32 * j + g.lane(q);
+      lead_raw[j][q] = n < N ? a.leader[n] : 0;
+    }
+  uint32_t lead[NW] = {};
+  for (int i = warp; i < groups; i += nwarps) {
+    const int m0 = 32 * i;
+    const int rows = N - m0 < 32 ? N - m0 : 32;
+    uint8_t ex[kL];
+    uint32_t st[kL];
+    for (int q = 0; q < kL; ++q) {
+      const int m = m0 + (g.lane(q) < rows ? g.lane(q) : 0);
+      ex[q] = a.exists[(int64_t)a.slot * N + m];
+      st[q] = (uint32_t)a.stake[m];
+    }
+    const int64_t e0 = ((int64_t)a.slot * N + m0) * N;
+    const int64_t a0 = e0 - (int64_t)(reinterpret_cast<uintptr_t>(a.parent + e0) % 16);
+    pack_gate_rows(g, a.parent, a0, e0, e0 + (int64_t)rows * N, F);
+    if (i == warp) {
+      NTW_UNROLL
+      for (int j = 0; j < NW; ++j) {
+        bool p[kL];
+        for (int q = 0; q < kL; ++q) p[q] = lead_raw[j][q] != 0;
+        lead[j] = g.ballot(p);
+      }
+    }
+    g.sync_warp();
+    for (int q = 0; q < kL; ++q) {
+      const int pos = (int)(e0 - a0) + g.lane(q) * N;
+      const uint32_t* p = F + (pos >> 5);
+      const int r = pos & 31;
+      uint32_t hit = 0;
+      NTW_UNROLL
+      for (int j = 0; j < NW; ++j) hit |= funnel_r(p[j], p[j + 1], r) & lead[j];
+      if (g.lane(q) < rows && ex[q] != 0 && hit != 0) sum[q] += st[q];
+    }
+    g.sync_warp();  // before the next group's pack overwrites F
+  }
+  return g.add_all(sum);
 }
 
 }  // namespace ntw

@@ -42,6 +42,7 @@ LAUNCHES: Dict[str, int] = {
     "leader_chain_scan": 0,
     "causal_mask_scan": 0,
     "support_stake": 0,
+    "commit_step": 0,
 }
 
 

@@ -1,4 +1,4 @@
-"""Tusk's DAG window on the card: five hand-written CUDA kernels.
+"""Tusk's DAG window on the card: six hand-written CUDA kernels.
 
 The port of ``narwhal_tpu/ops/reachability.py``.  The commit path's
 window is a pair of int32 presence-COUNT tensors that live on ``device``
@@ -17,7 +17,7 @@ maintained and read by two kernels (csrc/reachability.cu):
   launch and returns the W-bool committed bitmap (replaces
   ``leader_commit_scan_counts`` and its body ``_chain_scan``).
 
-Three more take the window as bools, as the JAX programs do:
+Four more take the window as bools, as the JAX programs do:
 
 - :func:`leader_chain_scan`, the same chain (one scan body with
   :func:`leader_commit_scan` in the CUDA source) that also returns the
@@ -25,10 +25,11 @@ Three more take the window as bools, as the JAX programs do:
 - :func:`causal_mask_scan`, the causal cone of one certificate (replaces
   ``causal_mask_scan``);
 - :func:`support_stake`, the f+1 support gate's stake sum (replaces
-  ``support_stake``).
-
-The flagship commit step (``narwhal_tpu_torch/commit_step.py``) composes
-the last and the first of these.
+  ``support_stake``);
+- :func:`commit_step_fused`, the flagship commit step of
+  ``narwhal_tpu_torch/commit_step.py`` (the JAX ``support_stake`` and
+  ``leader_chain_scan`` traced as one program) in one launch: the chain
+  scan's, with the support gate run beside the scan.
 
 Where the JAX programs donate their buffers, the port updates the
 window tensors in place.  Each wrapper launches its kernel for a CUDA
@@ -42,7 +43,9 @@ shared memory, then one warp steps the W slots on those bits, a step
 being a few shared loads, one warp OR reduction per 32-bit word and some
 ANDs, with no block barrier and no global load inside it.  A window
 larger than shared memory is scanned in chunks of slots, the frontier
-carried across them.
+carried across them.  The support gate is written once in the same file:
+a warp packs 32 child rows into bits in its own shared memory and tests
+each against the leader's bit words.
 """
 
 from __future__ import annotations
@@ -442,11 +445,53 @@ def support_stake(parent, exists, stake, leader_slot: int, leader_onehot):
     require(leader_onehot, torch.bool, (N,), dev, "support_stake leader_onehot")
     out = torch.empty((), dtype=torch.int32, device=dev)
     fn = kernel_fn("nt_support_stake", _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _VP)
-    rc = fn(ptr(parent), ptr(exists), ptr(stake), int(leader_slot),
+    rc = fn(ptr(parent), ptr(exists), ptr(stake), _support_slot(leader_slot, W),
             ptr(leader_onehot), ptr(out), W, N,
             ctypes.c_void_p(stream_handle(dev)))
     check_launch("support_stake", rc)
     return out
+
+
+# ------------------------------------------------------------------ commit_step
+
+
+def commit_step_plain(parent, exists, leader_onehot, is_leader_slot, stake,
+                      anchor_slot: int, anchor_onehot):
+    """Plain twin of :func:`commit_step_fused`: the two plain twins, the
+    support gate's leader row resolved as JAX resolves a traced index."""
+    row = leader_onehot[_leader_row(anchor_slot, exists.shape[0])]
+    support = support_stake_plain(parent, exists, stake, anchor_slot - 2, row)
+    return (support, *leader_chain_scan_plain(
+        parent, exists, leader_onehot, is_leader_slot, anchor_slot, anchor_onehot))
+
+
+def commit_step_fused(parent, exists, leader_onehot, is_leader_slot, stake,
+                      anchor_slot: int, anchor_onehot):
+    """The flagship commit step (``__graft_entry__.make_commit_step``: the
+    support gate of the leader two slots below the anchor, then the
+    linked-leader chain with its reach masks) in ONE launch: the chain
+    scan's cluster, whose blocks that are idle after the pack run the
+    gate while one warp steps the scan.  Returns (support 0-d int32,
+    committed bool[W], reach bool[W, N]) on the window's device, with no
+    host synchronisation."""
+    if exists.device.type == "cpu":
+        return commit_step_plain(parent, exists, leader_onehot, is_leader_slot,
+                                 stake, anchor_slot, anchor_onehot)
+    W, N, dev = _chain_scan_checks(parent, exists, leader_onehot, is_leader_slot,
+                                   anchor_onehot, torch.bool, "commit_step")
+    require(stake, torch.int32, (N,), dev, "commit_step stake")
+    support = torch.empty((), dtype=torch.int32, device=dev)
+    committed = torch.empty(W, dtype=torch.bool, device=dev)
+    reach = torch.empty((W, N), dtype=torch.bool, device=dev)
+    fn = kernel_fn("nt_commit_step", _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP,
+                   _VP, _VP, _I, _I, _VP)
+    rc = fn(ptr(parent), ptr(exists), ptr(leader_onehot), ptr(is_leader_slot),
+            ptr(anchor_onehot), int(anchor_slot), ptr(stake),
+            _support_slot(anchor_slot - 2, W), _leader_row(anchor_slot, W),
+            ptr(support), ptr(committed), ptr(reach), W, N,
+            ctypes.c_void_p(stream_handle(dev)))
+    check_launch("commit_step", rc)
+    return support, committed, reach
 
 
 # -------------------------------------------------------------------- KernelTusk

@@ -3,7 +3,9 @@ host build of the same pack and step the CUDA kernels run, the 32 lanes of
 the scanning warp stepped in lockstep (tests/window_bits_host.cpp, built
 with g++ once per module), held against the port's plain twins and the
 JAX ``leader_commit_scan_counts``, ``leader_chain_scan`` and
-``causal_mask_scan``.
+``causal_mask_scan``; and the support gate the flagship commit step and
+``support_stake`` run on the card, against ``support_stake_plain`` and
+the JAX ``support_stake``.
 
 Every comparison is exact (tolerance 0): the outputs are bools.  Chunks
 are forced small so that the frontier crosses chunk boundaries, and the
@@ -51,6 +53,8 @@ def bits(tmp_path_factory):
     lib.h_smem_bytes.restype = ctypes.c_longlong
     lib.h_byte_bits.argtypes = [ctypes.c_uint]
     lib.h_byte_bits.restype = ctypes.c_uint
+    lib.h_support_stake.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+    lib.h_gate_warps.argtypes = [i]
     return lib
 
 
@@ -291,3 +295,46 @@ def test_byte_bits_reads_any_nonzero_byte(bits):
     for x in words:
         want = sum(1 << c for c in range(4) if (x >> (8 * c)) & 0xFF)
         assert bits.h_byte_bits(x) == want, hex(x)
+
+
+# (W, N): rows of 1, 2, 4, 8 and 32 words of 32 bits, and N = 1, 32 and
+# 1024 at the edges of a word.
+GATE_SHAPES = [(8, 1), (8, 31), (16, 32), (16, 50), (8, 65), (8, 100), (4, 200),
+               (3, 1000), (2, 1024)]
+
+
+@pytest.mark.parametrize("W,N", GATE_SHAPES)
+def test_support_gate_matches_plain_and_jax(bits, W, N):
+    """The gate body at every leader slot from -W-3 to W+1 (the child slot
+    resolved by ``_support_slot``: from the end once, then clamped), for a
+    one-hot leader, no leader and a leader of several bits, with the rows
+    split over the warps of the commit step's idle blocks, over the
+    standalone kernel's warps, over one warp and over three."""
+    rng = np.random.default_rng(3000 + 7 * W + N)
+    parent = rng.random((W, N, N)) < 0.3
+    exists = rng.random((W, N)) < 0.8
+    stake = rng.integers(-3, 100, N).astype(np.int32)
+    stake[rng.random(N) < 0.05] = np.iinfo(np.int32).max  # the sum wraps
+    jp, je, js = jnp.asarray(parent), jnp.asarray(exists), jnp.asarray(stake)
+    groups = (N + 31) // 32
+    splits = sorted({bits.h_gate_warps(N), min(groups, 16), 1, 3})
+    assert bits.h_gate_warps(N) == (56 if N > 512 else 112)
+    nonzero = 0
+    for leader_slot in range(-W - 3, W + 2):
+        slot = TR._support_slot(leader_slot, W)
+        leaders = [np.eye(N, dtype=bool)[int(rng.integers(N))],
+                   np.zeros(N, dtype=bool), rng.random(N) < 0.1]
+        for leader in leaders:
+            want = int(JR.support_stake(jp, je, js, jnp.int32(leader_slot),
+                                        jnp.asarray(leader), W))
+            plain = TR.support_stake_plain(_t(parent), _t(exists), _t(stake),
+                                           leader_slot, _t(leader))
+            assert int(plain) == want, leader_slot
+            for warps in splits:
+                out = np.zeros(1, np.int32)
+                assert bits.h_support_stake(
+                    _p(parent.view(np.uint8)), _p(exists.view(np.uint8)), _p(stake),
+                    _p(leader.view(np.uint8)), slot, N, warps, _p(out)) == 0
+                assert int(out[0]) == want, (leader_slot, warps)
+            nonzero += want != 0
+    assert nonzero > 0, "no case had support"

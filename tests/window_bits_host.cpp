@@ -2,7 +2,7 @@
 // (narwhal_tpu_torch/csrc/window_bits.cuh): the same pack and step the
 // CUDA kernels run, with the 32 lanes of the scanning warp stepped in
 // lockstep by ntw::HostGroup and the block's warps packed one after
-// another.  Built with g++ into a shared library by
+// another; and the support gate, its warps run one after another.  Built with g++ into a shared library by
 // tests/test_torch_window_bits.py and called through ctypes.
 //
 // Bools cross as bytes.  `chunk` > 0 forces chunks of that many slots;
@@ -43,6 +43,17 @@ int run(const ntw::ScanArgs<T>& a, int chunk, int warps) {
   }
 }
 
+template <int NW>
+int32_t gate_nw(const ntw::GateArgs& a, int warps) {
+  std::vector<uint32_t> F(ntw::gate_words(a.N, NW), 0xa5a5a5a5u);
+  uint32_t sum = 0;
+  for (int k = 0; k < warps; ++k) {
+    for (auto& w : F) w = 0x5a5a5a5au ^ (uint32_t)k;
+    sum += ntw::support_gate<NW>(ntw::HostGroup{1}, k, warps, a, F.data());
+  }
+  return (int32_t)sum;
+}
+
 }  // namespace
 
 extern "C" {
@@ -81,6 +92,29 @@ int h_causal_mask_scan(const uint8_t* parent, const uint8_t* exists,
                                  start_slot, nullptr, mask, W, N};
   return run<uint8_t, true>(a, chunk, warps);
 }
+
+// The support gate (ntw::support_gate) with `warps` warps splitting the
+// row groups, each on its own junk-filled shared memory, their parts
+// summed; `slot` is the child slot, already resolved.  Returns 0, or -1
+// for N outside [1, 1024] or no warps.
+int h_support_stake(const uint8_t* parent, const uint8_t* exists, const int32_t* stake,
+                    const uint8_t* leader, int slot, int N, int warps, int32_t* out) {
+  if (N < 1 || N > 1024 || warps < 1) return -1;
+  const ntw::GateArgs a{parent, exists, stake, leader, slot, N};
+  switch (ntw::nw_class(N)) {
+    case 1: *out = gate_nw<1>(a, warps); break;
+    case 2: *out = gate_nw<2>(a, warps); break;
+    case 4: *out = gate_nw<4>(a, warps); break;
+    case 8: *out = gate_nw<8>(a, warps); break;
+    case 16: *out = gate_nw<16>(a, warps); break;
+    default: *out = gate_nw<32>(a, warps); break;
+  }
+  return 0;
+}
+
+// The warps that split the gate's rows in the flagship commit step's
+// cluster (every block's but the first) at N.
+int h_gate_warps(int N) { return ntw::gate_warps(ntw::nw_class(N)); }
 
 // The card's chunk size for (W, N) under `limit` bytes, and the shared
 // bytes a chunk of S slots takes.
