@@ -3,10 +3,12 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (the window
-scans also with rows of several words and in chunks of slots, and the
-verifier's batch split against its single launch), then drives two paths
-at the N=50 committee size, each with the launch counts set to 0 just
-before it and read just after:
+scans also with rows of several words and in chunks of slots, the
+verifier's batch split against its single launch, and the verifier, the
+commit scan and the ring update at the ``committee`` phase's burst pads
+and window), then drives three
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
 - ``commit_step``: the flagship commit step
   (``narwhal_tpu_torch.commit_step.entry()``, W=64), one launch a step,
@@ -19,7 +21,15 @@ before it and read just after:
   commit sequence must equal the Python Tusk's; at every commit
   opportunity the bool-window kernels are held against the Tusk on the
   live device window (:class:`LiveWindowCheck`), outside the timings,
-  with its launches counted apart from the path's.
+  with its launches counted apart from the path's;
+- ``committee``: 10 port primaries in this process on loopback TCP
+  (:class:`PortNode`, booted as the reference's ``spawn_primary_node``
+  boots a primary), each verifying its drained bursts on the ``cuda``
+  crypto backend and committing through ``Consensus(use_kernel=True)``,
+  until every node has committed 50 leaders (120 s at most); every pair
+  of nodes must agree on their common prefix, each node's sequence must
+  be what the plain ``Tusk`` commits from the certificates in the order
+  its Consensus took them, and no background task may die.
 
 One JSON line per phase; the line before the last is the card's name and
 power limit as nvidia-smi reports them, and the last line is
@@ -40,6 +50,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -86,6 +97,20 @@ def diff(a, b):
     """(mismatching elements, max |a - b|) of two int or bool tensors."""
     d = (a.long() - b.long()).abs()
     return int((d != 0).sum()), float(d.max()) if d.numel() else 0.0
+
+
+class Mismatch:
+    """Mismatching elements and the largest |a - b|, over pairs of
+    tensors added with :meth:`add`."""
+
+    def __init__(self) -> None:
+        self.count, self.err = 0, 0.0
+
+    def add(self, got, want) -> None:
+        for a, b in zip(got, want):
+            m, e = diff(a, b)
+            self.count += m
+            self.err = max(self.err, e)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1, prefill: bool = False) -> float:
@@ -497,6 +522,9 @@ def phase_kernels(dag, keys, device, rng):
         library_ms=None,
         extra=dict(
             ms_b16384=cuda_ms(lambda: E.verify_kernel(*tiled), 5),
+            # The pads the committee's small bursts take, back to back.
+            ms_b16=cuda_ms(lambda: E.verify_kernel(*[a[:16].contiguous() for a in args]), 20),
+            ms_b32=cuda_ms(lambda: E.verify_kernel(*[a[:32].contiguous() for a in args]), 20),
             checked=dict(b2048=VERIFY_BATCH, b16384=8 * VERIFY_BATCH,
                          py_sample=len(sample),
                          corrupted=kind.count("corrupted"),
@@ -759,6 +787,23 @@ def phase_kernels(dag, keys, device, rng):
             host_ms_per_call=host_ms(lambda: E.verify_sharded(args, devices), 10),
         ))
     records["ed25519_verify"]["extra"]["routes"] = routes
+
+    # -- the committee phase's shapes: the verifier at every burst pad its
+    #    nodes warm, the scan and the ring update at its window (N = 10)
+    _, small = loopback_committee(COMMITTEE_N, COMMITTEE_BASE_PORT, 1)
+    before = dict(LAUNCHES)
+    pads = committee_pad_checks(rows, kind, mask, device, committee_pads(small))
+    shapes = committee_window_checks(small, device)
+    shapes["ed25519_verify"] = dict(
+        pads=pads, mismatches=sum(p["mismatches"] for p in pads),
+        max_abs_err=max(p["max_abs_err"] for p in pads),
+        launches=LAUNCHES["ed25519_verify"] - before["ed25519_verify"])
+    for name, shape in shapes.items():
+        rec = records[name]
+        rec["mismatches"] += shape["mismatches"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], shape["max_abs_err"])
+        rec["check_launches"] += shape["launches"]
+        rec.setdefault("extra", {})["committee_shape"] = shape
     return records
 
 
@@ -823,14 +868,8 @@ def window_update_record(nrng, dev, exists_np, parent_np, flush_np) -> dict:
     from narwhal_tpu_torch.ops import LAUNCHES, reachability as R
 
     before = dict(LAUNCHES)
-    mism, err = 0, 0.0
-
-    def check(got, want):
-        nonlocal mism, err
-        for a, b in zip(got, want):
-            m, e = diff(a, b)
-            mism += m
-            err = max(err, e)
+    acc = Mismatch()
+    check = acc.add
 
     flush = [dev(a) for a in flush_np]
     ke, kp, pe, pp = (dev(a) for a in (exists_np, parent_np, exists_np, parent_np))
@@ -842,28 +881,14 @@ def window_update_record(nrng, dev, exists_np, parent_np, flush_np) -> dict:
 
     shapes, forms = [], {}
     for W, N in UPDATE_SHAPES:
-        e_np, p_np = causal_window(nrng, W, N)
-        p_np *= nrng.integers(1, 4, p_np.shape, dtype=np.int32)
-        e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
-        rand = [dev(a) for a in random_flush(nrng, W, N, UPDATE_ROWS)]
-        long = [dev(a) for a in random_flush(nrng, W, N, 2 * UPDATE_ROWS + 88)]
-        cases = ((W - 1, 2, True, rand), (1, 3, True, rand), (W // 2, 0, False, rand),
-                 (3, W - 1, True, None), (0, 0, True, None), (5, 1, True, long))
-        for origin, retired, slot0, fl in cases:
-            k2, q2 = dev(e2_np), dev(p2_np)
-            R.window_update(k2, q2, fl, window=W, origin=origin, retired=retired,
-                            clear_slot0=slot0)
-            want = R.window_update_plain(dev(e2_np), dev(p2_np), fl, window=W,
-                                         origin=origin, retired=retired,
-                                         clear_slot0=slot0)
-            check((k2, q2), want)
+        e2_np, p2_np, cases = ring_checks(nrng, dev, W, N, UPDATE_ROWS, check)
         # The three forms at origin W - 1, a shift by 2 where a clear runs.
         steady = [dev(a) for a in commit_flush(nrng, W, N, UPDATE_ROWS)]
         e2, p2 = dev(e2_np), dev(p2_np)
         o = W - 1
         form_args = dict(flush=(steady, 0, False), clear=(None, 2, True),
                          both=(steady, 2, True))
-        shape = dict(window=W, committee=N, cases=len(cases))
+        shape = dict(window=W, committee=N, cases=cases)
         for name, (fl, retired, slot0) in form_args.items():
             def call(fl=fl, retired=retired, slot0=slot0):
                 R.window_update(e2, p2, fl, window=W, origin=o, retired=retired,
@@ -874,31 +899,179 @@ def window_update_record(nrng, dev, exists_np, parent_np, flush_np) -> dict:
         shapes.append(shape)
     # Negative slots and authorities: the standalone apply, and the ring
     # with a clear pending at an origin whose view wraps, at every shape.
-    negative_cases = 0
-    for W, N in UPDATE_SHAPES:
-        e_np, p_np = causal_window(nrng, W, N)
-        neg = [dev(a) for a in random_flush(nrng, W, N, UPDATE_ROWS, negative=True)]
-        ke, kp, pe, pp = (dev(a) for a in (e_np, p_np, e_np, p_np))
-        R.window_apply(ke, kp, *neg)
-        R.window_apply_plain(pe, pp, *neg)
-        check((ke, kp), (pe, pp))
-        e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
-        k2, q2 = dev(e2_np), dev(p2_np)
-        R.window_update(k2, q2, neg, window=W, origin=W - 3, retired=2, clear_slot0=True)
-        check((k2, q2), R.window_update_plain(dev(e2_np), dev(p2_np), neg, window=W,
-                                              origin=W - 3, retired=2, clear_slot0=True))
-        negative_cases += 2
+    negative_cases = sum(negative_ring_checks(nrng, dev, W, N, UPDATE_ROWS, check)
+                         for W, N in UPDATE_SHAPES)
     main = forms["both"]
     return dict(
         replaces="narwhal_tpu/ops/reachability.py:187 (window_shift_op), :163 (window_apply)",
         source="narwhal_tpu_torch/csrc/reachability.cu",
-        mismatches=mism, max_abs_err=err,
+        mismatches=acc.count, max_abs_err=acc.err,
         check_launches=LAUNCHES["window_update"] - before["window_update"],
         ms=main["ms"], host_ms_per_call=main["host_ms_per_call"],
         plain_ms=main["plain_ms"], library_ms=main["library_ms"],
         bound_ms=main["bound_ms"], bound_by="bytes",
         extra=dict(forms=forms, shapes=shapes, apply_no_ring_ms=apply_ms,
                    negative_index_cases=negative_cases),
+    )
+
+
+def ring_checks(nrng, dev, W: int, N: int, rows: int, check):
+    """``window_update`` against its plain twin on the mirrored ring at
+    (W, N): origins whose views wrap, a retired run that wraps below slot
+    0, flushes of ``rows`` entries and of more than two chunks of them
+    that land in the retired slots, a clear with no flush and a flush
+    with no clear.  ``check(got, want)`` takes each pair.  Returns the
+    ring's two copies as numpy arrays and the number of cases."""
+    import numpy as np
+
+    from narwhal_tpu_torch.ops import reachability as R
+
+    e_np, p_np = causal_window(nrng, W, N)
+    p_np *= nrng.integers(1, 4, p_np.shape, dtype=np.int32)
+    e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
+    rand = [dev(a) for a in random_flush(nrng, W, N, rows)]
+    long = [dev(a) for a in random_flush(nrng, W, N, 2 * rows + 88)]
+    cases = ((W - 1, 2, True, rand), (1, 3, True, rand), (W // 2, 0, False, rand),
+             (3, W - 1, True, None), (0, 0, True, None), (5, 1, True, long))
+    for origin, retired, slot0, fl in cases:
+        k2, q2 = dev(e2_np), dev(p2_np)
+        R.window_update(k2, q2, fl, window=W, origin=origin, retired=retired,
+                        clear_slot0=slot0)
+        want = R.window_update_plain(dev(e2_np), dev(p2_np), fl, window=W,
+                                     origin=origin, retired=retired,
+                                     clear_slot0=slot0)
+        check((k2, q2), want)
+    return e2_np, p2_np, len(cases)
+
+
+def negative_ring_checks(nrng, dev, W: int, N: int, rows: int, check) -> int:
+    """Negative slots and authorities at (W, N): the standalone apply, and
+    the ring with a clear pending at an origin whose view wraps.  Returns
+    the number of cases."""
+    import numpy as np
+
+    from narwhal_tpu_torch.ops import reachability as R
+
+    e_np, p_np = causal_window(nrng, W, N)
+    neg = [dev(a) for a in random_flush(nrng, W, N, rows, negative=True)]
+    ke, kp, pe, pp = (dev(a) for a in (e_np, p_np, e_np, p_np))
+    R.window_apply(ke, kp, *neg)
+    R.window_apply_plain(pe, pp, *neg)
+    check((ke, kp), (pe, pp))
+    e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
+    k2, q2 = dev(e2_np), dev(p2_np)
+    R.window_update(k2, q2, neg, window=W, origin=W - 3, retired=2, clear_slot0=True)
+    check((k2, q2), R.window_update_plain(dev(e2_np), dev(p2_np), neg, window=W,
+                                          origin=W - 3, retired=2, clear_slot0=True))
+    return 2
+
+
+def committee_pads(committee) -> list:
+    """The verifier's pads that a committee phase node warms: 16 doubled
+    up to the pad of the largest burst (:func:`derive_max_claims`)."""
+    from narwhal_tpu_torch.ops import ed25519 as E
+
+    top = E.pad_size(derive_max_claims(committee))
+    pads = [16]
+    while pads[-1] < top:
+        pads.append(2 * pads[-1])
+    return pads
+
+
+def committee_pad_checks(rows, kind, verdict, device, pads) -> list:
+    """The verifier against its plain version at the committee phase's
+    burst pads.  At each pad, a burst three claims short of it (the rest
+    of the pad zero rows) drawn from ``rows``: hostile rows (up to half),
+    corrupted ones (up to a quarter), the rest honest, shuffled so that
+    every kind falls in every lane of a group.  ``kind`` names each row's
+    kind and ``verdict`` its answer at B = 2048, which was checked there.
+    A pad's mismatches count the launch against the plain version over
+    the whole pad and against ``verdict`` over the claims."""
+    from narwhal_tpu_torch.ops import ed25519 as E
+
+    by_kind = {k: [i for i, x in enumerate(kind) if x.startswith(k)]
+               for k in ("hostile", "corrupted", "honest")}
+    out = []
+    for pad in pads:
+        n = pad - 3
+        h = min(len(by_kind["hostile"]), n // 2)
+        c = min(len(by_kind["corrupted"]), n // 4)
+        idx = (by_kind["hostile"][:h] + by_kind["corrupted"][:c]
+               + by_kind["honest"][: n - h - c])
+        random.Random(SEED + pad).shuffle(idx)
+        args = E.to_device(E.prepare_batch(*zip(*(rows[i] for i in idx)), pad), device)
+        got = E.verify_kernel(*args)
+        mism, err = diff(got, E.verify_plain(*args))
+        wrong = int((got[:n].cpu().numpy() != verdict[idx]).sum())
+        out.append(dict(pad=pad, claims=n, hostile=h, corrupted=c,
+                        accepted=int(got.sum()), mismatches=mism + wrong,
+                        max_abs_err=max(err, float(wrong > 0))))
+    return out
+
+
+def committee_window_checks(committee, device) -> dict:
+    """``leader_commit_scan`` and ``window_update`` against their plain
+    twins at the committee phase's shape: the window W and the flush chunk
+    of C rows that a ``KernelTusk`` of ``committee`` at the default
+    gc_depth takes (at N = 10 a row is one 32-bit word), on a generator of
+    their own.  The update runs the ring's cases, negative indices, and a
+    steady opportunity's launch (two rounds of certificates and a shift by
+    2) at an origin whose view wraps and at one that does not; the scan
+    runs anchors near the top, in the middle and outside the window.
+    Returns per kernel its shape, cases, launches and mismatches."""
+    import numpy as np
+    import torch
+
+    from narwhal_tpu_torch.config import Parameters
+    from narwhal_tpu_torch.ops import LAUNCHES, reachability as R
+
+    tusk = R.KernelTusk(committee, Parameters().gc_depth, device=device)
+    W, N, C = tusk.max_window, tusk._n, tusk._cap
+    nrng = np.random.default_rng(SEED + N)
+
+    def dev(a):  # a copy, also on the CPU
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+
+    before = dict(LAUNCHES)
+    update = Mismatch()
+    _, _, cases = ring_checks(nrng, dev, W, N, C, update.add)
+    cases += negative_ring_checks(nrng, dev, W, N, C, update.add)
+    for origin in (W - 1, 5):
+        e_np, p_np = causal_window(nrng, W, N)
+        e2_np, p2_np = np.concatenate([e_np, e_np]), np.concatenate([p_np, p_np])
+        steady = [dev(a) for a in commit_flush(nrng, W, N, C, certs=2 * N)]
+        k2, q2 = dev(e2_np), dev(p2_np)
+        R.window_update(k2, q2, steady, window=W, origin=origin, retired=2,
+                        clear_slot0=True)
+        update.add((k2, q2), R.window_update_plain(
+            dev(e2_np), dev(p2_np), steady, window=W, origin=origin, retired=2,
+            clear_slot0=True))
+        cases += 1
+    scan = Mismatch()
+    scan_cases, committed = 0, 0
+    for trial in range(4):
+        e_np, p_np = causal_window(nrng, W, N)
+        p_np *= nrng.integers(1, 4, p_np.shape, dtype=np.int32)
+        leader, is_lead = leader_schedule(e_np)
+        pc, ec, lo, isl = dev(p_np), dev(e_np), dev(leader), dev(is_lead)
+        for slot in (W - 2 - 2 * trial, W // 2 + trial, W):
+            onehot = np.zeros(N, dtype=bool)
+            onehot[int(np.flatnonzero(e_np[min(slot, W - 1)])[0])] = True
+            a = (pc, ec, lo, isl, slot, dev(onehot))
+            got = R.leader_commit_scan(*a)
+            scan.add((got,), (R.leader_commit_scan_plain(*a),))
+            committed += int(got.sum())
+            scan_cases += 1
+    assert committed > 0, "the committee-shape scan check committed nothing"
+    return dict(
+        window_update=dict(
+            window=W, committee=N, rows=C, cases=cases, mismatches=update.count,
+            max_abs_err=update.err,
+            launches=LAUNCHES["window_update"] - before["window_update"]),
+        leader_commit_scan=dict(
+            window=W, committee=N, cases=scan_cases, committed=committed,
+            mismatches=scan.count, max_abs_err=scan.err,
+            launches=LAUNCHES["leader_commit_scan"] - before["leader_commit_scan"]),
     )
 
 
@@ -1414,6 +1587,376 @@ def phase_main_path(keys, committee, signed, rng):
     return result
 
 
+# ------------------------------------------------------------ the committee
+
+# BASELINE.json configs[2] ("10-node committee, 1 worker, 100k tx/s, cert
+# quorum-verify bound") without its worker and load: 10 primaries of stake
+# 1 (f = 3, a quorum of 7) on loopback, the reference's default Parameters
+# (header_size 1,000, max_header_delay 100 ms, gc_depth 50), so headers are
+# empty and paced by the delay.
+COMMITTEE_N = 10
+COMMITTEE_LEADERS = 50
+COMMITTEE_CAP_S = 120.0
+COMMITTEE_BASE_PORT = 27000
+
+
+def key_seed(salt: int, i: int) -> bytes:
+    """The 32-byte seed of authority ``i``'s ed25519 key."""
+    return SEED.to_bytes(8, "little") + bytes([salt, i]) * 12
+
+
+def loopback_committee(n: int, base_port: int, salt: int):
+    """``n`` seeded ed25519 keys and a committee of stake 1 each on
+    loopback, five ports an authority (both primary listeners and the
+    three worker addresses), from ``base_port`` up."""
+    from narwhal_tpu_torch.config import (
+        Authority, Committee, PrimaryAddresses, WorkerAddresses,
+    )
+    from narwhal_tpu_torch.crypto import KeyPair
+
+    keys = [KeyPair.generate(key_seed(salt, i)) for i in range(n)]
+    authorities = {}
+    for i, kp in enumerate(keys):
+        port = base_port + 5 * i
+        addr = [f"127.0.0.1:{port + k}" for k in range(5)]
+        authorities[kp.name] = Authority(
+            stake=1,
+            primary=PrimaryAddresses(primary_to_primary=addr[0], worker_to_primary=addr[1]),
+            workers={0: WorkerAddresses(
+                transactions=addr[2], worker_to_worker=addr[3], primary_to_worker=addr[4],
+            )},
+        )
+    return keys, Committee(authorities)
+
+
+def derive_max_claims(committee) -> int:
+    """The largest claim batch a Core burst can produce (the reference's
+    ``node/node.py::derive_max_claims``): the messages one verify dispatch
+    covers, each a certificate with its header claim and the largest
+    vote set that can form a quorum."""
+    from narwhal_tpu_torch.primary.core import Core
+    from narwhal_tpu_torch.utils.env import env_float, env_int
+
+    max_items = Core.DRAIN_LIMIT
+    if env_float("NARWHAL_VERIFY_BATCH_WINDOW_MS") > 0:
+        max_items = max(max_items, env_int("NARWHAL_VERIFY_BATCH_MAX"))
+    stakes = sorted(a.stake for a in committee.authorities.values())
+    acc, worst_votes = 0, 0
+    for s in stakes:
+        acc += s
+        worst_votes += 1
+        if acc >= committee.quorum_threshold():
+            break
+    return max_items * (worst_votes + 1)
+
+
+class PortNode:
+    """One port primary and its Consensus, booted in the order of the
+    reference's ``node/node.py::spawn_primary_node``: the verify backend
+    warmed for every burst pad, the three channels at
+    ``NARWHAL_CHANNEL_CAPACITY``, the Consensus built and its kernel
+    window prewarmed, then ``Primary.spawn``, then the consensus and
+    output tasks.  ``received`` holds the certificates in the order the
+    Consensus takes them (a tee on its ``rx_primary``), ``committed`` what
+    it committed."""
+
+    def __init__(self) -> None:
+        self.primary = None
+        self.consensus = None
+        self.store = None
+        self.tasks = []
+        self.received = []
+        self.committed = []
+        self.leaders = 0
+        self.warm_launches = {}
+
+    @classmethod
+    async def boot(cls, keypair, committee, parameters, device=None):
+        from narwhal_tpu_torch import metrics
+        from narwhal_tpu_torch.consensus import Consensus
+        from narwhal_tpu_torch.crypto import backend as cb
+        from narwhal_tpu_torch.primary import Primary
+        from narwhal_tpu_torch.store import Store
+        from narwhal_tpu_torch.utils.env import env_int
+        from narwhal_tpu_torch.utils.tasks import spawn
+
+        class Tee(metrics.InstrumentedQueue):
+            def _put(self, item):
+                node.received.append(item)
+                super()._put(item)
+
+        from narwhal_tpu_torch.ops import LAUNCHES
+
+        node = cls()
+        node.store = Store()
+        before = dict(LAUNCHES)
+        backend = cb.get_backend()
+        if hasattr(backend, "warmup"):
+            backend.warmup(max_claims=derive_max_claims(committee))
+        cap = env_int("NARWHAL_CHANNEL_CAPACITY")
+        tx_new = Tee(cap, channel="node.tx_new_certificates")
+        tx_feedback = metrics.InstrumentedQueue(cap, channel="node.tx_feedback")
+        tx_output = metrics.InstrumentedQueue(cap, channel="node.tx_output")
+        node.consensus = Consensus(
+            committee, parameters.gc_depth, rx_primary=tx_new,
+            tx_primary=tx_feedback, tx_output=tx_output,
+            use_kernel=True, device=device,
+        )
+        if hasattr(node.consensus.tusk, "prewarm"):
+            node.consensus.tusk.prewarm()
+        # The warm-ups' launches, which are no traffic of the committee.
+        node.warm_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
+        node.primary = await Primary.spawn(
+            keypair, committee, parameters, node.store,
+            tx_consensus=tx_new, rx_consensus=tx_feedback,
+        )
+        node.tasks.append(spawn(node.consensus.run(), name="consensus"))
+        node.tasks.append(spawn(node._collect(tx_output), name="analyze"))
+        return node
+
+    async def _collect(self, tx_output) -> None:
+        tusk = self.consensus.tusk
+        while True:
+            cert = await tx_output.get()
+            self.committed.append(cert)
+            if cert.round % 2 == 0 and cert.origin == tusk._leader_name(cert.round):
+                self.leaders += 1
+
+    async def shutdown(self) -> None:
+        for task in self.tasks:
+            task.cancel()
+        if self.primary is not None:
+            await self.primary.shutdown()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+        self.store.close()
+
+
+class TaskDeaths:
+    """Counts the background tasks that ``utils/tasks.spawn`` reports as
+    dead of an unhandled exception (its ``narwhal.tasks`` log record)."""
+
+    def __init__(self) -> None:
+        import logging
+
+        self.records = []
+
+        class Handler(logging.Handler):
+            def emit(handler, record):
+                if "died of an unhandled exception" in record.getMessage():
+                    exc = record.exc_info[1] if record.exc_info else None
+                    self.records.append(f"{record.getMessage()}: {exc!r}")
+
+        self._handler = Handler(logging.ERROR)
+        self._logger = logging.getLogger("narwhal.tasks")
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        return False
+
+
+async def run_committee(keys, committee, parameters, leaders: int, cap_s: float,
+                        device=None, on_boot=None):
+    """Boot one :class:`PortNode` a key, run until every node has committed
+    ``leaders`` leaders, then shut all down.  Returns (nodes, seconds from
+    the last boot to the goal, the highest round any Consensus had taken
+    at the last boot); raises TimeoutError past ``cap_s``.  ``on_boot(node)``
+    runs right after each boot."""
+    nodes = []
+    try:
+        for kp in keys:
+            node = await PortNode.boot(kp, committee, parameters, device=device)
+            nodes.append(node)
+            if on_boot is not None:
+                on_boot(node)
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        start_round = max((c.round for n in nodes for c in n.received), default=0)
+        while min(n.leaders for n in nodes) < leaders:
+            if loop.time() - t0 > cap_s:
+                raise TimeoutError(
+                    f"leaders committed per node after {cap_s} s: "
+                    f"{[n.leaders for n in nodes]}")
+            await asyncio.sleep(0.02)
+        return nodes, loop.time() - t0, start_round
+    finally:
+        for node in nodes:
+            await node.shutdown()
+
+
+def committee_checks(nodes, committee, gc_depth) -> dict:
+    """Every pair of nodes commits the same digests on their common
+    prefix, and each node's sequence is a prefix of what the port's plain
+    ``Tusk`` (on the CPU) commits given the certificates in the order that
+    node's Consensus took them."""
+    from narwhal_tpu_torch.consensus import Tusk
+
+    seqs = [[bytes(c.digest()) for c in n.committed] for n in nodes]
+    for i in range(len(seqs)):
+        for j in range(i + 1, len(seqs)):
+            k = min(len(seqs[i]), len(seqs[j]))
+            assert seqs[i][:k] == seqs[j][:k], f"nodes {i} and {j} disagree"
+    replayed = []
+    for node, seq in zip(nodes, seqs):
+        tusk = Tusk(committee, gc_depth)
+        want = [bytes(c.digest()) for cert in node.received
+                for c in tusk.process_certificate(cert)]
+        assert seq and want[:len(seq)] == seq, "a node's sequence != plain Tusk"
+        replayed.append(len(want))
+    return {"prefix_agrees": True, "replay_equal": True,
+            "committed": [len(s) for s in seqs], "replayed": replayed}
+
+
+def phase_committee():
+    """N port primaries on loopback: each verifies its bursts on the card
+    (the ``cuda`` crypto backend) and commits through ``KernelTusk``."""
+    import torch
+
+    from narwhal_tpu_torch import metrics
+    from narwhal_tpu_torch.config import Parameters
+    from narwhal_tpu_torch.crypto import backend as cb
+    from narwhal_tpu_torch.ops import LAUNCHES, reset_launches
+    from narwhal_tpu_torch.ops import ed25519 as E
+
+    cb.set_backend("cuda")  # strict: a broken build raises here
+    backend = cb.get_backend()
+    assert type(backend).__name__ == "CudaBackend", type(backend)
+    assert backend.device.type == "cuda", backend.device
+    keys, committee = loopback_committee(COMMITTEE_N, COMMITTEE_BASE_PORT, 1)
+    parameters = Parameters()
+    prep_s, kernel_ms, call_cpu_s, opportunity_s = [], [], [], []
+    prepare_batch, verify_kernel = E.prepare_batch, E.verify_kernel
+    verify_batch_arrays = E.verify_batch_arrays
+
+    def on_dispatch_thread() -> bool:
+        # A burst's verify runs on the backend's dispatch thread; the
+        # boots' warm-ups run on this one.
+        return threading.current_thread().name.startswith("cuda-verify")
+
+    def timed_prep(*args):
+        t0 = time.perf_counter()
+        out = prepare_batch(*args)
+        if on_dispatch_thread():
+            prep_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_call(*args):
+        # The CPU time the backend's call ran on its thread; the rest of
+        # its wall time (ms_backend_per_burst) is waiting: for the GIL,
+        # which the event loop's thread holds while it runs the
+        # primaries, or for the card.
+        if not on_dispatch_thread():
+            return verify_batch_arrays(*args)
+        c0 = time.thread_time()
+        out = verify_batch_arrays(*args)
+        call_cpu_s.append(time.thread_time() - c0)
+        return out
+
+    def timed_kernel(*arrays):
+        if not on_dispatch_thread():
+            return verify_kernel(*arrays)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = verify_kernel(*arrays)
+        stop.record()
+        stop.synchronize()  # the mask's copy back waits for it anyway
+        kernel_ms.append(start.elapsed_time(stop))
+        return out
+
+    def on_boot(node):
+        tusk = node.consensus.tusk
+        order_leaders = tusk.order_leaders
+
+        def timed_order_leaders(leader):
+            t0 = time.perf_counter()
+            out = order_leaders(leader)  # flush + scan + the W-bool fetch
+            opportunity_s.append(time.perf_counter() - t0)
+            return out
+
+        tusk.order_leaders = timed_order_leaders
+
+    async def go():
+        return await run_committee(keys, committee, parameters, COMMITTEE_LEADERS,
+                                   COMMITTEE_CAP_S, on_boot=on_boot)
+
+    metrics.registry().reset()
+    reset_launches()  # the committee's launches start here
+    E.prepare_batch, E.verify_kernel = timed_prep, timed_kernel
+    E.verify_batch_arrays = timed_call
+    t0 = time.perf_counter()
+    try:
+        with TaskDeaths() as deaths:
+            nodes, goal_s, start_round = asyncio.run(go())
+        torch.cuda.synchronize()
+    finally:
+        E.prepare_batch, E.verify_kernel = prepare_batch, verify_kernel
+        E.verify_batch_arrays = verify_batch_arrays
+        cb.set_backend("cpu")
+    wall = time.perf_counter() - t0
+    # The path's launches: the boots' warm-ups are counted apart.
+    warm = {k: sum(n.warm_launches.get(k, 0) for n in nodes) for k in LAUNCHES}
+    launches = {k: v - warm[k] for k, v in LAUNCHES.items()}
+    assert deaths.records == [], deaths.records
+    for name in ("ed25519_verify", "window_update", "leader_commit_scan"):
+        assert launches[name] > 0, launches
+    checks = committee_checks(nodes, committee, parameters.gc_depth)
+    reg = metrics.registry()
+    device_s = reg.histograms["crypto.verify.device_seconds.batch_burst"]
+    wall_s = reg.histograms["crypto.verify.seconds.batch_burst"]
+    claims = reg.counters["crypto.verify.ops.batch_burst"].value
+    rounds = max(c.round for n in nodes for c in n.received)
+    bursts = device_s.count
+    # The per-burst splits below come from the prep, call and kernel that
+    # the backend's dispatch thread ran: each must have seen every burst.
+    # Core keeps one burst in flight and the thread runs one at a time, so
+    # a node's shutdown can cut off the await of one burst whose call ran.
+    for name, seen in (("host prep", prep_s), ("kernel", kernel_ms),
+                       ("backend call", call_cpu_s)):
+        assert 0 < bursts <= len(seen) <= bursts + COMMITTEE_N, (name, len(seen), bursts)
+    result = dict(
+        phase="committee",
+        committee=COMMITTEE_N, quorum=committee.quorum_threshold(),
+        header_size=parameters.header_size,
+        max_header_delay_ms=parameters.max_header_delay,
+        gc_depth=parameters.gc_depth,
+        backend=f"{type(backend).__name__}:{backend.device}",
+        rounds_reached=rounds,
+        min_leaders_committed=min(n.leaders for n in nodes),
+        leaders_committed=[n.leaders for n in nodes],
+        last_committed_round=[n.consensus.tusk.state.last_committed_round for n in nodes],
+        wall_s=wall, goal_s=goal_s,
+        rounds_after_boot=rounds - start_round,
+        ms_per_round=1000 * goal_s / max(1, rounds - start_round),
+        verify_bursts=bursts, claims=claims,
+        claims_per_burst=claims / max(1, bursts),
+        ms_backend_per_burst=1000 * device_s.sum / max(1, bursts),
+        ms_host_prep_per_burst=1000 * sum(prep_s) / max(1, len(prep_s)),
+        host_prep_calls=len(prep_s),
+        # Device time of the verify launch alone (CUDA events around it).
+        ms_kernel_per_burst=sum(kernel_ms) / max(1, len(kernel_ms)),
+        ms_thread_cpu_per_burst=1000 * sum(call_cpu_s) / max(1, len(call_cpu_s)),
+        # Across the await: the burst's wait for the one dispatch thread
+        # that all N Cores share, and the event loop's wake-up.
+        ms_wall_per_burst=1000 * wall_s.sum / max(1, wall_s.count),
+        dispatch_thread_busy_share=device_s.sum / goal_s,
+        launches=launches, warmup_launches=warm,
+        launches_per_burst=launches["ed25519_verify"] / max(1, bursts),
+        commit_opportunities=len(opportunity_s),
+        ms_per_commit_opportunity=1000 * sum(opportunity_s) / max(1, len(opportunity_s)),
+        launches_per_commit_opportunity={
+            name: launches[name] / max(1, len(opportunity_s))
+            for name in ("window_update", "leader_commit_scan")},
+        task_deaths=len(deaths.records),
+        **checks,
+    )
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "narwhal_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -1468,6 +2011,7 @@ def main() -> int:
 
     step = phase_commit_step(device)
     main = phase_main_path(keys, committee, signed, rng)
+    committee_run = phase_committee()
 
     # Each kernel's launches on the path that carries it: the flagship
     # commit step for its one launch, the main path's live-window check
@@ -1482,14 +2026,18 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": r["source"],
          "replaces": r["replaces"], "launches": paths[name][1][name],
          "path": paths[name][0],
+         "committee_launches": committee_run["launches"][name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **({"committee_shape_mismatches": r["extra"]["committee_shape"]["mismatches"]}
+            if "committee_shape" in r.get("extra", {}) else {}),
          **({"routes": [
              {k: v for k, v in route.items() if k != "check_launches"}
              for route in r["extra"]["routes"]],
              **{k: r["extra"][k] for k in (
-                 "ms_b16384", "registers_per_thread", "local_bytes_per_thread",
+                 "ms_b16384", "ms_b16", "ms_b32", "registers_per_thread",
+                 "local_bytes_per_thread",
                  "launch_b2048")}}
             if name == "ed25519_verify" else {}),
          **({k: r["extra"][k] for k in ("launch_w64_n50", "cycles_w64_n50", "shapes",

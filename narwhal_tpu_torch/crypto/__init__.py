@@ -3,7 +3,7 @@
 Mirrors the capability surface of the reference `crypto` crate
 (reference crypto/src/lib.rs): a 32-byte `Digest` newtype, a `Hash` seam
 (here: objects expose `.digest()`), ed25519 keypairs, single `verify` and
-batched `verify_batch`.  (The `SignatureService` arrives with the primary.)
+batched `verify_batch`, and a `SignatureService` that serializes signing.
 
 This module is also the backend seam for GPU execution: `set_backend("cuda")`
 routes `verify_batch` through the batched CUDA verification kernel in
@@ -19,6 +19,7 @@ from .aggregate import (
     SchemeMismatch,
     aggregate_votes,
 )
+from .service import SignatureService
 from .backend import (
     set_backend,
     get_backend,
@@ -37,6 +38,7 @@ __all__ = [
     "SchemeMismatch",
     "SecretKey",
     "Signature",
+    "SignatureService",
     "aggregate_votes",
     "set_backend",
     "get_backend",

@@ -34,12 +34,38 @@ class EnvVar:
     off)."""
 
     name: str
-    kind: str  # "flag" | "int" | "str"
+    kind: str  # "flag" | "int" | "float" | "str"
     default: object
     doc: str
 
 
 _VARS = [
+    # -- core runtime ---------------------------------------------------------
+    EnvVar(
+        "NARWHAL_BIND_ANY", "flag", False,
+        "Listen on 0.0.0.0 instead of the advertised committee IP "
+        "(NAT'd/cloud hosts); applies to every listener including the "
+        "metrics endpoint.",
+    ),
+    EnvVar(
+        "NARWHAL_VOTE_FAST_PATH", "flag", True,
+        "`0` restores per-header vote persists instead of the coalesced "
+        "once-per-burst vote-log flush (round-cadence fast path).",
+    ),
+    EnvVar(
+        "NARWHAL_NET_BACKOFF_MAX_S", "float", 60.0,
+        "Reconnect-backoff ceiling in seconds (floor 0.2 s). Lower it "
+        "for fault scenarios / latency-sensitive deployments so healed "
+        "partitions are noticed quickly.",
+    ),
+    EnvVar(
+        "NARWHAL_CHANNEL_CAPACITY", "int", 1_000,
+        "Bounded-queue capacity for every inter-task channel "
+        "(node/primary/worker planes; the quorum admission window keeps "
+        "its own QUORUM_WINDOW depth). The knee matrix sweeps it; "
+        "in-process harnesses may still pass an explicit per-node "
+        "override.",
+    ),
     # -- protocol and wire ----------------------------------------------------
     EnvVar(
         "NARWHAL_WIRE_V2", "flag", True,
@@ -84,6 +110,11 @@ _VARS = [
         "(instrumented code needs no enabled-checks).",
     ),
     EnvVar(
+        "NARWHAL_TRACE", "flag", False,
+        "Per-digest TRACE instrumentation plus worker heartbeat logs "
+        "(hot-path cost; debugging aid).",
+    ),
+    EnvVar(
         "NARWHAL_TRACE_CAP", "int", 32_768,
         "Stage-trace table capacity before eviction "
         "(`metrics.trace_evictions` counts overflow).",
@@ -96,6 +127,13 @@ _VARS = [
     EnvVar(
         "NARWHAL_FLIGHT_CAP", "int", 512,
         "Flight-recorder ring capacity (events kept; oldest evicted).",
+    ),
+    EnvVar(
+        "NARWHAL_FLIGHT_DIR", "str", None,
+        "Directory for atomic flight-ring dump files "
+        "(`flight-<node>-<n>-<reason>.json`) on an unhandled task "
+        "death; unset = no file dumps (the ring stays in every "
+        "registry snapshot).",
     ),
     # -- crypto backend -------------------------------------------------------
     EnvVar(
@@ -119,6 +157,36 @@ _VARS = [
         "launched on its card before any is awaited) so crypto "
         "throughput scales with cards; single-card hosts run the "
         "single-launch kernel.",
+    ),
+    EnvVar(
+        "NARWHAL_VERIFY_BATCH_WINDOW_MS", "float", 0.0,
+        "Core verify-batch accumulation window: >0 coalesces signature "
+        "claims from multiple drained bursts (headers, votes, certs) "
+        "arriving within this many ms into ONE backend dispatch, run in "
+        "a pipelined verify task so proposer/waiter work keeps flowing "
+        "during the device round trip. 0 (default) = verify each "
+        "drained burst inline.",
+    ),
+    EnvVar(
+        "NARWHAL_VERIFY_BATCH_MAX", "int", 256,
+        "Max messages one coalesced verify dispatch may cover when the "
+        "batch window is enabled (bounds device batch shape and the "
+        "latency added ahead of the first message's replay).",
+    ),
+    # -- fault injection ------------------------------------------------------
+    EnvVar(
+        "NARWHAL_FAULT_SEED", "int", None,
+        "Overrides the fault plan's RNG seed (rogue keys, twin minting, "
+        "fuzz draws).",
+    ),
+    EnvVar(
+        "NARWHAL_FAULT_NETEM", "str", None,
+        "Path to a WAN-emulation spec consumed by `faults/netem.py`; "
+        "unset = no emulation.",
+    ),
+    EnvVar(
+        "NARWHAL_FAULT_NODE", "str", "",
+        "This node's name in the netem spec (selects its link profile).",
     ),
 ]
 
@@ -199,3 +267,41 @@ def env_int(
         return int(raw)
     return _parse_number(name, raw, int, d)
 
+
+
+def env_float(
+    name: str,
+    default: object = _UNSET,
+    env: Optional[Mapping[str, str]] = None,
+):
+    raw = env_raw(name, env)
+    d = REGISTRY[name].default if default is _UNSET else default
+    if raw is None:
+        return d
+    if not isinstance(raw, str):
+        return float(raw)
+    return _parse_number(name, raw, float, d)
+
+
+@functools.lru_cache(maxsize=64)
+def _parse_positive_int(name: str, raw: str, default: int) -> int:
+    try:
+        v = int(raw)
+        if v > 0:
+            return v
+    except ValueError:
+        pass
+    log.warning(
+        "%s=%r is not a positive integer; using %d", name, raw, default
+    )
+    return default
+
+
+def positive_int(name: str, default: int) -> int:
+    """``int(os.environ[name])`` when set and positive, else ``default``
+    (with a once-per-value warning on garbage).  The default stays at the
+    call site because these knobs compute it (e.g. from batch_size)."""
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    return _parse_positive_int(name, raw, default)
