@@ -7,8 +7,8 @@ scans also with rows of several words and in chunks of slots, the
 verifier's batch split against its single launch, and the verifier, the
 commit scan and the ring update at the ``committee`` phase's burst pads
 and window), then drives three
-paths, each with the launch counts set to 0 just before it and read just
-after:
+paths in this process, each with the launch counts set to 0 just before
+it and read just after, and then the node CLI in processes of its own:
 
 - ``commit_step``: the flagship commit step
   (``narwhal_tpu_torch.commit_step.entry()``, W=64), one launch a step,
@@ -23,13 +23,24 @@ after:
   live device window (:class:`LiveWindowCheck`), outside the timings,
   with its launches counted apart from the path's;
 - ``committee``: 10 port primaries in this process on loopback TCP
-  (:class:`PortNode`, booted as the reference's ``spawn_primary_node``
-  boots a primary), each verifying its drained bursts on the ``cuda``
-  crypto backend and committing through ``Consensus(use_kernel=True)``,
-  until every node has committed 50 leaders (120 s at most); every pair
-  of nodes must agree on their common prefix, each node's sequence must
-  be what the plain ``Tusk`` commits from the certificates in the order
-  its Consensus took them, and no background task may die.
+  (:class:`PortNode`, booted by the port's ``spawn_primary_node``), each
+  verifying its drained bursts on the ``cuda`` crypto backend and
+  committing through ``Consensus(use_kernel=True)``, until every node
+  has committed 50 leaders (120 s at most); every pair of nodes must
+  agree on their common prefix, each node's sequence must be what the
+  plain ``Tusk`` commits from the certificates in the order its
+  Consensus took them, and no background task may die;
+- ``node``: ten validators started through the port's node CLI as the
+  reference's local bench starts them (``prewarm``, then a process per
+  primary and per worker, then a benchmark client per worker at 1,000
+  tx/s for 30 s; :func:`run_node_committee`), every primary on the card
+  (``--crypto-backend cuda --experimental-consensus-kernel``); every
+  process must exit 0, no log may hold an error, the reference's
+  ``benchmark/logs.py`` must read committed samples from the logs, the
+  primaries' commit sequences must agree and hold 20 leaders, each must
+  be what the plain ``Tusk`` commits from the certificates of that
+  primary's store, and every primary's snapshot must show each of the
+  three kernels launched on the card outside the boot's warm-ups.
 
 One JSON line per phase; the line before the last is the card's name and
 power limit as nvidia-smi reports them, and the last line is
@@ -48,6 +59,8 @@ import ctypes
 import json
 import os
 import random
+import re
+import signal
 import subprocess
 import sys
 import threading
@@ -968,7 +981,9 @@ def negative_ring_checks(nrng, dev, W: int, N: int, rows: int, check) -> int:
 
 def committee_pads(committee) -> list:
     """The verifier's pads that a committee phase node warms: 16 doubled
-    up to the pad of the largest burst (:func:`derive_max_claims`)."""
+    up to the pad of the largest burst (the port's
+    ``node/node.py::derive_max_claims``)."""
+    from narwhal_tpu_torch.node.node import derive_max_claims
     from narwhal_tpu_torch.ops import ed25519 as E
 
     top = E.pad_size(derive_max_claims(committee))
@@ -1597,7 +1612,21 @@ def phase_main_path(keys, committee, signed, rng):
 COMMITTEE_N = 10
 COMMITTEE_LEADERS = 50
 COMMITTEE_CAP_S = 120.0
-COMMITTEE_BASE_PORT = 27000
+# Below the host's ephemeral port range (see check_port_block): a port
+# the kernel hands to an outgoing connection cannot be bound.
+COMMITTEE_BASE_PORT = 8000
+
+
+def check_port_block(base: int, count: int) -> dict:
+    """Fail unless ports [base, base + count) lie outside the range the
+    host gives outgoing connections (``ip_local_port_range``): a node's
+    listener bound after its peers began dialling could find its port
+    taken by one of their connections.  Returns the range."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        lo, hi = map(int, f.read().split())
+    assert base + count <= lo or base > hi, (
+        f"ports {base}-{base + count - 1} overlap the ephemeral range {lo}-{hi}")
+    return {"ephemeral_ports": [lo, hi], "ports": [base, base + count - 1]}
 
 
 def key_seed(salt: int, i: int) -> bytes:
@@ -1629,42 +1658,19 @@ def loopback_committee(n: int, base_port: int, salt: int):
     return keys, Committee(authorities)
 
 
-def derive_max_claims(committee) -> int:
-    """The largest claim batch a Core burst can produce (the reference's
-    ``node/node.py::derive_max_claims``): the messages one verify dispatch
-    covers, each a certificate with its header claim and the largest
-    vote set that can form a quorum."""
-    from narwhal_tpu_torch.primary.core import Core
-    from narwhal_tpu_torch.utils.env import env_float, env_int
-
-    max_items = Core.DRAIN_LIMIT
-    if env_float("NARWHAL_VERIFY_BATCH_WINDOW_MS") > 0:
-        max_items = max(max_items, env_int("NARWHAL_VERIFY_BATCH_MAX"))
-    stakes = sorted(a.stake for a in committee.authorities.values())
-    acc, worst_votes = 0, 0
-    for s in stakes:
-        acc += s
-        worst_votes += 1
-        if acc >= committee.quorum_threshold():
-            break
-    return max_items * (worst_votes + 1)
-
-
 class PortNode:
-    """One port primary and its Consensus, booted in the order of the
-    reference's ``node/node.py::spawn_primary_node``: the verify backend
-    warmed for every burst pad, the three channels at
-    ``NARWHAL_CHANNEL_CAPACITY``, the Consensus built and its kernel
-    window prewarmed, then ``Primary.spawn``, then the consensus and
-    output tasks.  ``received`` holds the certificates in the order the
-    Consensus takes them (a tee on its ``rx_primary``), ``committed`` what
-    it committed."""
+    """One port primary and its Consensus, booted by the port's
+    ``narwhal_tpu_torch.node.spawn_primary_node`` (the verify backend
+    warmed for every burst pad, the three channels, the Consensus built
+    and its kernel window prewarmed, then ``Primary.spawn``) with
+    ``use_kernel=True``.  ``received`` holds the certificates in the order
+    the Consensus takes them (a tee on its ``rx_primary``), ``committed``
+    what it committed, ``warm_launches`` the launches of the boot's
+    warm-ups."""
 
     def __init__(self) -> None:
-        self.primary = None
+        self.node = None
         self.consensus = None
-        self.store = None
-        self.tasks = []
         self.received = []
         self.committed = []
         self.leaders = 0
@@ -1672,63 +1678,47 @@ class PortNode:
 
     @classmethod
     async def boot(cls, keypair, committee, parameters, device=None):
-        from narwhal_tpu_torch import metrics
         from narwhal_tpu_torch.consensus import Consensus
-        from narwhal_tpu_torch.crypto import backend as cb
-        from narwhal_tpu_torch.primary import Primary
-        from narwhal_tpu_torch.store import Store
-        from narwhal_tpu_torch.utils.env import env_int
-        from narwhal_tpu_torch.utils.tasks import spawn
-
-        class Tee(metrics.InstrumentedQueue):
-            def _put(self, item):
-                node.received.append(item)
-                super()._put(item)
-
+        from narwhal_tpu_torch.node import spawn_primary_node
         from narwhal_tpu_torch.ops import LAUNCHES
 
-        node = cls()
-        node.store = Store()
+        self = cls()
         before = dict(LAUNCHES)
-        backend = cb.get_backend()
-        if hasattr(backend, "warmup"):
-            backend.warmup(max_claims=derive_max_claims(committee))
-        cap = env_int("NARWHAL_CHANNEL_CAPACITY")
-        tx_new = Tee(cap, channel="node.tx_new_certificates")
-        tx_feedback = metrics.InstrumentedQueue(cap, channel="node.tx_feedback")
-        tx_output = metrics.InstrumentedQueue(cap, channel="node.tx_output")
-        node.consensus = Consensus(
-            committee, parameters.gc_depth, rx_primary=tx_new,
-            tx_primary=tx_feedback, tx_output=tx_output,
-            use_kernel=True, device=device,
-        )
-        if hasattr(node.consensus.tusk, "prewarm"):
-            node.consensus.tusk.prewarm()
-        # The warm-ups' launches, which are no traffic of the committee.
-        node.warm_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
-        node.primary = await Primary.spawn(
-            keypair, committee, parameters, node.store,
-            tx_consensus=tx_new, rx_consensus=tx_feedback,
-        )
-        node.tasks.append(spawn(node.consensus.run(), name="consensus"))
-        node.tasks.append(spawn(node._collect(tx_output), name="analyze"))
-        return node
 
-    async def _collect(self, tx_output) -> None:
+        class TeeConsensus(Consensus):
+            def __init__(consensus, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                put, prewarm = consensus.rx_primary._put, consensus.tusk.prewarm
+
+                def tee(item):
+                    self.received.append(item)
+                    put(item)
+
+                def warmed():
+                    # The backend's warm-up ran before this Consensus, the
+                    # window's runs here; both are no traffic of the
+                    # committee.
+                    prewarm()
+                    self.warm_launches = {
+                        k: v - before[k] for k, v in LAUNCHES.items()}
+
+                consensus.rx_primary._put = tee
+                consensus.tusk.prewarm = warmed
+
+        self.node = await spawn_primary_node(
+            keypair, committee, parameters, on_commit=self._commit,
+            use_kernel=True, device=device, consensus_cls=TeeConsensus)
+        self.consensus = self.node.consensus
+        return self
+
+    def _commit(self, cert) -> None:
+        self.committed.append(cert)
         tusk = self.consensus.tusk
-        while True:
-            cert = await tx_output.get()
-            self.committed.append(cert)
-            if cert.round % 2 == 0 and cert.origin == tusk._leader_name(cert.round):
-                self.leaders += 1
+        if cert.round % 2 == 0 and cert.origin == tusk._leader_name(cert.round):
+            self.leaders += 1
 
     async def shutdown(self) -> None:
-        for task in self.tasks:
-            task.cancel()
-        if self.primary is not None:
-            await self.primary.shutdown()
-        await asyncio.gather(*self.tasks, return_exceptions=True)
-        self.store.close()
+        await self.node.shutdown()
 
 
 class TaskDeaths:
@@ -1825,6 +1815,7 @@ def phase_committee():
     backend = cb.get_backend()
     assert type(backend).__name__ == "CudaBackend", type(backend)
     assert backend.device.type == "cuda", backend.device
+    ports = check_port_block(COMMITTEE_BASE_PORT, 5 * COMMITTEE_N)
     keys, committee = loopback_committee(COMMITTEE_N, COMMITTEE_BASE_PORT, 1)
     parameters = Parameters()
     prep_s, kernel_ms, call_cpu_s, opportunity_s = [], [], [], []
@@ -1950,8 +1941,449 @@ def phase_committee():
         launches_per_commit_opportunity={
             name: launches[name] / max(1, len(opportunity_s))
             for name in ("window_update", "leader_commit_scan")},
-        task_deaths=len(deaths.records),
+        task_deaths=len(deaths.records), **ports,
         **checks,
+    )
+    emit(result)
+    return result
+
+
+# ------------------------------------------------------------ the node CLI
+
+# BASELINE.json configs[2] ("10-node committee, 1 worker, 100k tx/s, cert
+# quorum-verify bound") as the reference's local bench starts it
+# (benchmark/local_bench.py::run_bench), through the port's node CLI: one
+# process per primary, per worker and per client, the reference's default
+# Parameters, --benchmark on every node.  The load is BASELINE's 100k tx/s
+# cut tenfold, because 31 Python processes share the host's cores.
+NODE_N = 10
+NODE_BASE_PORT = 9000
+NODE_SALT = 2
+NODE_RATE = 1_000  # tx/s a client
+NODE_TX_SIZE = 512
+NODE_LOAD_S = 30.0
+NODE_CAP_S = 150.0  # from the first node's start to the last exit
+NODE_MIN_LEADERS = 20
+NODE_WORKDIR = os.path.join(HERE, "build", "node_phase")
+NODE_KERNELS = ("ed25519_verify", "window_update", "leader_commit_scan")
+# The boot lines each process logs once it is ready (the reference's own:
+# node/node.py and primary.py / worker.py).
+BOOTED = "successfully booted"
+CARD_PRIMARY_BOOT = ("Verify backend cuda ready", "Consensus kernel ready", BOOTED)
+
+
+def node_files(workdir: str, n: int, base_port: int, salt: int):
+    """Seeded keys, a loopback committee and the default Parameters, as
+    the files ``node run`` reads; returns (keys, committee)."""
+    from narwhal_tpu_torch.config import Parameters, export_keypair
+
+    os.makedirs(workdir, exist_ok=True)
+    keys, committee = loopback_committee(n, base_port, salt)
+    committee.export(os.path.join(workdir, "committee.json"))
+    Parameters().export(os.path.join(workdir, "parameters.json"))
+    for i, kp in enumerate(keys):
+        export_keypair(kp, os.path.join(workdir, f"node-{i}.json"))
+    return keys, committee
+
+
+def node_command(workdir: str, i: int, role, *flags) -> list:
+    """``python -m narwhal_tpu_torch.node run`` for authority ``i``'s
+    primary (``role`` "primary") or worker (``("worker", "--id", "0")``)."""
+    role = (role,) if isinstance(role, str) else tuple(role)
+    store = f"db-{role[0]}-{i}" + (f"-{role[-1]}" if role[0] == "worker" else "")
+    return [sys.executable, "-m", "narwhal_tpu_torch.node", "run",
+            "--keys", os.path.join(workdir, f"node-{i}.json"),
+            "--committee", os.path.join(workdir, "committee.json"),
+            "--parameters", os.path.join(workdir, "parameters.json"),
+            "--store", os.path.join(workdir, store),
+            *flags, *role]
+
+
+def client_command(address: str, rate: int, index: int) -> list:
+    """One benchmark client against a worker's transaction socket, its
+    sample ids in a space of its own (as local_bench's)."""
+    return [sys.executable, "-m", "narwhal_tpu_torch.node.benchmark_client",
+            address, "--size", str(NODE_TX_SIZE), "--rate", str(rate),
+            "--sample-offset", str(index << 32), "--nodes", address]
+
+
+class NodeProcesses:
+    """The children of one committee run, each logging to its own file in
+    ``workdir``.  Leaving the block stops every child still running."""
+
+    def __init__(self, workdir: str) -> None:
+        self.workdir = workdir
+        self.procs = {}
+        self.env = dict(os.environ, PYTHONPATH=HERE)
+
+    def start(self, name: str, argv, env=None):
+        with open(self.log_path(name), "w") as f:
+            self.procs[name] = subprocess.Popen(
+                argv, stdout=f, stderr=subprocess.STDOUT, cwd=HERE,
+                env=dict(self.env, **(env or {})))
+        return self.procs[name]
+
+    def log_path(self, name: str) -> str:
+        return os.path.join(self.workdir, f"{name}.log")
+
+    def log(self, name: str) -> str:
+        with open(self.log_path(name), errors="replace") as f:
+            return f.read()
+
+    def wait_for(self, texts: dict, deadline_s: float) -> dict:
+        """Wait until each named log holds all of its texts; returns
+        {name: the texts still missing} for a process that exited first
+        or when the deadline passed, and {} when all are there."""
+        end = time.monotonic() + deadline_s
+        missing = dict(texts)
+        while missing and time.monotonic() < end:
+            for name in list(missing):
+                log = self.log(name)
+                missing[name] = [t for t in missing[name] if t not in log]
+                if not missing[name]:
+                    del missing[name]
+                elif self.procs[name].poll() is not None:
+                    return missing
+            if missing:
+                time.sleep(0.2)
+        return missing
+
+    def stop(self, timeout_s: float = 75.0) -> dict:
+        """Stop every child and wait for it; returns {name: exit code}.
+        The clients go first, on SIGINT (the benchmark client's clean
+        stop); then the nodes on SIGTERM (the node's).  A child that
+        outlives ``timeout_s`` after its signal (the reference's local
+        bench grace) is killed and reported as None, which fails the
+        run: a primary too, although it may hold the card, so that no
+        process outlives the script (a CUDA context dies with its
+        process)."""
+        codes = {}
+        for clients in (True, False):
+            group = [n for n in self.procs if n.startswith("client") == clients]
+            for name in group:
+                if self.procs[name].poll() is None:
+                    self.procs[name].send_signal(
+                        signal.SIGINT if clients else signal.SIGTERM)
+            end = time.monotonic() + timeout_s
+            for name in group:
+                try:
+                    codes[name] = self.procs[name].wait(
+                        timeout=max(0.1, end - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    self.procs[name].kill()
+                    self.procs[name].wait()
+                    codes[name] = None
+        return codes
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
+_COMMITTED = re.compile(r"Committed B(\d+)\((\S+?)\)")
+
+
+def commit_sequence(log: str) -> list:
+    """A primary's committed headers in order, as (round, header) from its
+    ``Committed B{round}({header})`` lines (one line per payload digest,
+    so consecutive repeats are one header)."""
+    seq = []
+    for m in _COMMITTED.finditer(log):
+        item = (int(m.group(1)), m.group(2))
+        if not seq or seq[-1] != item:
+            seq.append(item)
+    return seq
+
+
+def stored_certificates(store_path: str, committee) -> list:
+    """The certificates in a primary's store by round, read as the node's
+    own recovery reads them (``node.py``): a value that parses as a
+    certificate and carries votes."""
+    from narwhal_tpu_torch import messages
+    from narwhal_tpu_torch.primary.messages import Certificate
+    from narwhal_tpu_torch.store import Store
+
+    messages.set_wire_committee(committee)
+    certs = []
+    store = Store(store_path)
+    try:
+        for value in store.values():
+            if len(value) < 140:  # smaller than any certificate
+                continue
+            try:
+                cert = Certificate.deserialize(value)
+            except Exception:
+                continue  # a header or a payload marker
+            if cert.votes or cert.agg is not None:
+                certs.append(cert)
+    finally:
+        store.close()
+    certs.sort(key=lambda c: (c.round, bytes(c.origin)))
+    return certs
+
+
+def committed_leaders(seq, origins, committee) -> int:
+    """The leaders in a commit sequence: an even round's header by that
+    round's round-robin leader (Tusk's ``_leader_name``)."""
+    names = sorted(committee.authorities)
+    return sum(1 for r, header in seq
+               if r % 2 == 0 and origins.get(header) == names[r % len(names)])
+
+
+def _log_time(line: str) -> float:
+    from datetime import datetime, timezone
+
+    stamp = line.split(" ", 1)[0].rstrip("Z")
+    return datetime.strptime(stamp, "%Y-%m-%dT%H:%M:%S.%f").replace(
+        tzinfo=timezone.utc).timestamp()
+
+
+def split_client_logs(client_logs, at: float):
+    """Each client log twice: with the sample lines sent before ``at``
+    only, and with those sent from ``at`` on only (every other line kept),
+    so ``parse_logs`` gives the end-to-end latency of each half."""
+    halves = ([], [])
+    for text in client_logs:
+        keep = ([], [])
+        for line in text.splitlines():
+            if "Sending sample transaction" in line:
+                keep[_log_time(line) >= at].append(line)
+            else:
+                keep[0].append(line)
+                keep[1].append(line)
+        for half, lines in zip(halves, keep):
+            half.append("\n".join(lines) + "\n")
+    return halves
+
+
+def run_node_committee(workdir: str, n: int, base_port: int, rate: int,
+                       load_s: float, primary_flags=(), primary_boot=(BOOTED,),
+                       boot_deadline_s: float = 90.0, prewarm=None) -> dict:
+    """Start a committee as ``benchmark/local_bench.py::run_bench`` does,
+    with ``narwhal_tpu_torch.node`` in place of ``narwhal_tpu.node``: the
+    ``prewarm`` command first (argv, run to its end), then a primary and
+    a worker process an authority, and once every node has logged its
+    boot lines a benchmark client a worker at ``rate`` tx/s for ``load_s``
+    seconds; then stop all.  Returns what the checks read: exit codes,
+    logs, commit sequences, the header authors, the snapshots."""
+    import shutil
+
+    from narwhal_tpu_torch.config import Parameters
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    keys, committee = node_files(workdir, n, base_port, NODE_SALT)
+    out = {"committee": committee, "processes": 0}
+    t0 = time.monotonic()
+    if prewarm is not None:
+        with open(os.path.join(workdir, "prewarm.log"), "w") as f:
+            rc = subprocess.run(prewarm, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                                timeout=600).returncode
+        out["prewarm_s"], out["processes"] = time.monotonic() - t0, 1
+        assert rc == 0, f"prewarm exited {rc}"
+    primaries = [f"primary-{i}" for i in range(n)]
+    workers = [f"worker-{i}" for i in range(n)]
+    clients = [f"client-{i}" for i in range(n)]
+    with NodeProcesses(workdir) as procs:
+        t_start = time.monotonic()
+        for i in range(n):
+            snapshot = os.path.join(workdir, f"metrics-{{}}-{i}.json").format
+            procs.start(primaries[i], node_command(
+                workdir, i, "primary", "--benchmark", *primary_flags,
+                "--metrics-path", snapshot("primary")))
+            procs.start(workers[i], node_command(
+                workdir, i, ("worker", "--id", "0"), "--benchmark",
+                "--metrics-path", snapshot("worker")))
+        missing = procs.wait_for(
+            {**{p: list(primary_boot) for p in primaries},
+             **{w: [BOOTED] for w in workers}}, boot_deadline_s)
+        assert not missing, f"nodes not booted: {missing}"
+        out["boot_s"] = time.monotonic() - t_start
+        for i in range(n):
+            address = committee.worker(keys[i].name, 0).transactions
+            procs.start(clients[i], client_command(address, rate, i))
+        t_load = time.time()
+        time.sleep(load_s)
+        codes = procs.stop()
+        out["wall_s"] = time.monotonic() - t_start
+        out["processes"] += len(procs.procs)
+    out["codes"] = codes
+    out["logs"] = {name: procs.log(name) for name in codes}
+    out["load_window"] = (t_load, time.time())
+    out["sequences"] = [commit_sequence(out["logs"][p]) for p in primaries]
+    out["certificates"] = [
+        stored_certificates(
+            os.path.join(workdir, f"db-primary-{i}", "store.log"), committee)
+        for i in range(n)]
+    # {header as the log prints it: its author}
+    out["origins"] = {repr(c.header.id): c.origin
+                      for certs in out["certificates"] for c in certs}
+    out["gc_depth"] = Parameters().gc_depth
+    out["snapshots"] = []
+    for i in range(n):
+        with open(os.path.join(workdir, f"metrics-primary-{i}.json")) as f:
+            out["snapshots"].append(json.load(f))
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def node_checks(run: dict, min_leaders: int) -> dict:
+    """What every node committee run must show: each process exited 0, no
+    log has an error line or a traceback, ``parse_logs`` reads the logs
+    with samples, every pair of primaries commits the same headers on
+    their common prefix, each sequence is what the plain ``Tusk`` commits
+    over that primary's store (:func:`replay_checks`), and the shortest
+    sequence holds ``min_leaders`` leaders.  Returns the figures the logs
+    give."""
+    names = sorted(run["codes"])
+    bad = {name: code for name, code in run["codes"].items() if code != 0}
+    assert not bad, f"processes exited non-zero: {bad}"
+    for name in names:
+        for marker in ("ERROR", "Traceback"):
+            assert marker not in run["logs"][name], f"{name}: {marker} in its log"
+    # The reference's log parser, as it is: it imports only the standard
+    # library, and its figures keep the reference's definitions.
+    from benchmark.logs import parse_logs
+
+    kinds = {k: [run["logs"][n] for n in names if n.startswith(k)]
+             for k in ("client", "worker", "primary")}
+    result = parse_logs(kinds["client"], kinds["worker"], kinds["primary"],
+                        NODE_TX_SIZE)
+    assert result.errors == [], result.errors
+    assert result.samples > 0, "no sample transaction committed"
+    seqs = run["sequences"]
+    for i in range(len(seqs)):
+        for j in range(i + 1, len(seqs)):
+            k = min(len(seqs[i]), len(seqs[j]))
+            assert seqs[i][:k] == seqs[j][:k], f"primaries {i} and {j} disagree"
+    replayed = replay_checks(run)
+    leaders = [committed_leaders(s, run["origins"], run["committee"]) for s in seqs]
+    shortest = min(range(len(seqs)), key=lambda i: len(seqs[i]))
+    assert leaders[shortest] >= min_leaders, (
+        f"the shortest commit sequence holds {leaders[shortest]} leaders")
+    t_load, t_end = run["load_window"]
+    halves = [parse_logs(half, kinds["worker"], kinds["primary"], NODE_TX_SIZE)
+              for half in split_client_logs(kinds["client"], (t_load + t_end) / 2)]
+    return dict(
+        consensus_tps=result.consensus_tps,
+        consensus_latency_ms=result.consensus_latency_ms,
+        end_to_end_tps=result.end_to_end_tps,
+        end_to_end_latency_ms=result.end_to_end_latency_ms,
+        # A committee that falls behind shows as a later half slower
+        # than the first.
+        end_to_end_latency_ms_halves=[h.end_to_end_latency_ms for h in halves],
+        samples=result.samples, committed_batches=result.committed_batches,
+        committed_bytes=result.committed_bytes, rate_misses=result.rate_misses,
+        config=result.config, prefix_agrees=True, replay_equal=True,
+        replayed_headers=replayed,
+        committed_headers=[len(s) for s in seqs], leaders_committed=leaders,
+    )
+
+
+def replay_checks(run: dict) -> list:
+    """Each primary's commit sequence is a prefix of what the port's
+    plain ``Tusk`` (on the CPU) commits given the certificates of that
+    primary's store by round: the same commit rule without the kernels,
+    so a decision all ten primaries make the same wrong way fails here.
+    Returns the replayed sequences' lengths."""
+    from narwhal_tpu_torch.consensus import Tusk
+
+    lengths = []
+    for i, (seq, certs) in enumerate(zip(run["sequences"], run["certificates"])):
+        tusk = Tusk(run["committee"], run["gc_depth"])
+        want = [(c.round, repr(c.header.id))
+                for cert in certs for c in tusk.process_certificate(cert)]
+        assert seq and want[:len(seq)] == seq, (
+            f"primary-{i}: its commit sequence != plain Tusk over its store")
+        lengths.append(len(want))
+    return lengths
+
+
+def _hist(snap: dict, name: str) -> dict:
+    return snap["histograms"].get(name, {"count": 0, "sum": 0.0})
+
+
+def phase_node():
+    """Ten port validators through the port's node CLI on one card: every
+    primary verifies its bursts on the ``cuda`` backend and commits
+    through ``KernelTusk``; workers and clients run on the host."""
+    ports = check_port_block(NODE_BASE_PORT, 5 * NODE_N)
+    node = [sys.executable, "-m", "narwhal_tpu_torch.node"]
+    committee_json = os.path.join(NODE_WORKDIR, "committee.json")
+    run = run_node_committee(
+        NODE_WORKDIR, NODE_N, NODE_BASE_PORT, NODE_RATE, NODE_LOAD_S,
+        primary_flags=("--crypto-backend", "cuda", "--experimental-consensus-kernel"),
+        primary_boot=CARD_PRIMARY_BOOT,
+        prewarm=node + ["prewarm", "--committee", committee_json,
+                        "--experimental-consensus-kernel"])
+    checks = node_checks(run, NODE_MIN_LEADERS)
+    assert run["wall_s"] <= NODE_CAP_S, f"node phase took {run['wall_s']:.1f} s"
+    per_primary = []
+    for i, snap in enumerate(run["snapshots"]):
+        log = run["logs"][f"primary-{i}"]
+        assert "Crypto backend: cuda (requested cuda)" in log, f"primary-{i}"
+        counters = snap["counters"]
+        device = _hist(snap, "crypto.verify.device_seconds.batch_burst")
+        wall = _hist(snap, "crypto.verify.seconds.batch_burst")
+        kernel = _hist(snap, "crypto.verify.kernel_seconds")
+        claims = counters.get("crypto.verify.ops.batch_burst", 0)
+        dispatches = counters.get("consensus.kernel.dispatches", 0)
+        assert claims > 0 and device["count"] > 0 and dispatches > 0, (
+            f"primary-{i}: claims {claims}, bursts {device['count']}, "
+            f"dispatches {dispatches}")
+        bursts = device["count"]
+        # Each kernel's launches in that process, counted where it
+        # launches (ops.check_launch), the boot's warm-ups apart.
+        launches = {k: counters.get(f"kernel.launches.{k}", 0)
+                    for k in NODE_KERNELS}
+        warmup = {k: counters.get(f"kernel.warmup_launches.{k}", 0)
+                  for k in NODE_KERNELS}
+        assert all(launches.values()), f"primary-{i}: launches {launches}"
+        # Every verify launch is timed by CUDA events: one a burst, and
+        # the odd batch of another site.
+        assert launches["ed25519_verify"] == kernel["count"] >= bursts, (
+            f"primary-{i}: {launches['ed25519_verify']} verify launches, "
+            f"{kernel['count']} timed, {bursts} bursts")
+        rounds = _hist(snap, "primary.round_advance_seconds")
+        per_primary.append(dict(
+            rounds=rounds["count"],
+            ms_per_round=1000 * rounds["sum"] / max(1, rounds["count"]),
+            bursts=bursts, claims_per_burst=claims / bursts,
+            ms_backend_per_burst=1000 * device["sum"] / bursts,
+            # Of the time from the last node's boot to the stop: this
+            # primary's own dispatch thread, in the backend.
+            backend_busy_share=device["sum"] / (run["wall_s"] - run["boot_s"]),
+            ms_wall_per_burst=1000 * wall["sum"] / max(1, wall["count"]),
+            # CUDA events around the verify launch, in that primary's
+            # own process: a wait for the other primaries' contexts counts.
+            ms_kernel_per_burst=1000 * kernel["sum"] / max(1, kernel["count"]),
+            kernel_timed_bursts=kernel["count"],
+            leaders_committed=checks["leaders_committed"][i],
+            kernel_dispatches=dispatches, launches=launches,
+            warmup_launches=warmup,
+            python_fallbacks=counters.get("consensus.kernel.python_fallbacks", 0),
+            last_committed_round=snap["gauges"].get("consensus.last_committed_round"),
+            commit_lag_rounds=snap["gauges"].get("consensus.commit_lag_rounds"),
+            # The node's sampling profiler (NARWHAL_PROFILE_HZ): the frames
+            # its threads spent the most samples in, idle waits left out.
+            profile_top=[(f["frame"], f["self_frac"])
+                         for f in (snap["detail"].get("profile.top") or [])[:4]],
+        ))
+    result = dict(
+        phase="node", committee=NODE_N, workers_per_authority=1,
+        rate_per_client=NODE_RATE, rate_total=NODE_RATE * NODE_N,
+        tx_size=NODE_TX_SIZE, load_s=NODE_LOAD_S, host_cpus=os.cpu_count(),
+        processes=run["processes"], prewarm_s=run["prewarm_s"],
+        boot_s=run["boot_s"], wall_s=run["wall_s"], seconds=run["seconds"],
+        nvidia_smi=nvidia_smi_line(), **ports,
+        node_bursts=sum(p["kernel_timed_bursts"] for p in per_primary),
+        node_dispatches=sum(p["kernel_dispatches"] for p in per_primary),
+        node_launches={k: sum(p["launches"][k] for p in per_primary)
+                       for k in NODE_KERNELS},
+        **checks, primaries=per_primary,
     )
     emit(result)
     return result
@@ -2012,6 +2444,7 @@ def main() -> int:
     step = phase_commit_step(device)
     main = phase_main_path(keys, committee, signed, rng)
     committee_run = phase_committee()
+    node_run = phase_node()
 
     # Each kernel's launches on the path that carries it: the flagship
     # commit step for its one launch, the main path's live-window check
@@ -2027,6 +2460,17 @@ def main() -> int:
          "replaces": r["replaces"], "launches": paths[name][1][name],
          "path": paths[name][0],
          "committee_launches": committee_run["launches"][name],
+         # The node phase runs in ten other processes: each kernel's
+         # launches there, warm-ups apart, summed over the primaries'
+         # snapshots; beside them the verifier's timed bursts and the
+         # update's flush dispatches (the rest of its launches are the
+         # clears a scan runs first).
+         **({"node_launches": node_run["node_launches"][name]}
+            if name in NODE_KERNELS else {}),
+         **({"node_bursts": node_run["node_bursts"]}
+            if name == "ed25519_verify" else {}),
+         **({"node_dispatches": node_run["node_dispatches"]}
+            if name == "window_update" else {}),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -184,13 +184,21 @@ def set_backend(
         raise ValueError(f"unknown crypto backend {name!r}")
 
 
-def set_backend_from_env(cli_choice: Optional[str] = None) -> str:
+# The reference's names for its batched verifier ("tpu", "jax"), which a
+# port node takes as "cuda": one NARWHAL_CRYPTO_BACKEND value, or one
+# harness command line, then serves a committee of both packages' nodes.
+_REFERENCE_BATCHED_NAMES = ("tpu", "jax")
+
+
+def set_backend_from_env(cli_choice: Optional[str] = None, device=None) -> str:
     """Boot-time backend selection: the CLI flag wins, then the
-    NARWHAL_CRYPTO_BACKEND env knob, then "cpu".  Returns the name that
-    was requested (the live backend's name may differ only under the
-    non-strict fallback)."""
+    NARWHAL_CRYPTO_BACKEND env knob, then "cpu"; the reference's "tpu"
+    and "jax" select "cuda" on ``device``.  Returns the name that was
+    requested (the live backend's name differs from it for "tpu" and
+    "jax", and under the non-strict fallback)."""
     name = cli_choice or env_str("NARWHAL_CRYPTO_BACKEND") or "cpu"
-    set_backend(name)
+    batched = _BATCHED_NAMES[0] if name in _REFERENCE_BATCHED_NAMES else name
+    set_backend(batched, device=device)
     return name
 
 

@@ -20,6 +20,7 @@ protocol path never pays the torch import cost.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -27,6 +28,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from .. import metrics
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -46,9 +49,32 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# The same counts in the metrics registry, so that a node's snapshot
+# carries its process's launches: ``kernel.launches.<name>``, and apart
+# from them ``kernel.warmup_launches.<name>`` for those made inside
+# :func:`warming` (a boot's warm-ups, on the thread that runs them).
+_m_launches = {n: metrics.counter(f"kernel.launches.{n}") for n in LAUNCHES}
+_m_warmup_launches = {
+    n: metrics.counter(f"kernel.warmup_launches.{n}") for n in LAUNCHES
+}
+_warming = threading.local()
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def warming():
+    """Count the launches this thread makes inside the block as warm-ups
+    in the metrics registry (``LAUNCHES`` counts them as any other)."""
+    outer = getattr(_warming, "on", False)
+    _warming.on = True
+    try:
+        yield
+    finally:
+        _warming.on = outer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -118,6 +144,8 @@ def check_launch(name: str, rc: int) -> None:
             f"narwhal_tpu_torch: launch of {name} failed with cudaError {rc}"
         )
     LAUNCHES[name] += 1
+    warm = getattr(_warming, "on", False)
+    (_m_warmup_launches if warm else _m_launches)[name].inc()
 
 
 def stream_handle(device: torch.device) -> int:

@@ -32,6 +32,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import metrics
 from ..utils.env import env_flag
 from . import (
     check_launch,
@@ -40,6 +41,7 @@ from . import (
     require,
     resolve_device,
     stream_handle,
+    warming,
 )
 from . import field25519 as F
 
@@ -464,12 +466,15 @@ def to_device(arrays, device) -> List[torch.Tensor]:
     ]
 
 
-def verify_batch_arrays(messages, keys, sigs, device=None) -> np.ndarray:
+def verify_batch_arrays(messages, keys, sigs, device=None,
+                        on_kernel=None) -> np.ndarray:
     """Bool mask for a batch of (message, key, signature) triples: host
     prep, one verifier call on ``device`` (None → the GPU), mask back.
     With ``device`` None, NARWHAL_VERIFY_MESH on and several cards
     visible, the padded batch (floor raised to 16 × cards) is split over
-    every card by :func:`verify_sharded`."""
+    every card by :func:`verify_sharded`.  ``on_kernel(seconds)``, when
+    given, receives the single launch's time on the card (CUDA events
+    around it, so a wait for another process's kernels counts)."""
     n = len(messages)
     if n == 0:
         return np.zeros(0, dtype=bool)
@@ -481,7 +486,23 @@ def verify_batch_arrays(messages, keys, sigs, device=None) -> np.ndarray:
     if n_dev > 1:
         devices = [torch.device("cuda", k) for k in range(n_dev)]
         return verify_sharded(arrays, devices)[:n]
-    return verify_kernel(*to_device(arrays, dev)).cpu().numpy()[:n]
+    args = to_device(arrays, dev)
+    if on_kernel is None or dev.type != "cuda":
+        return verify_kernel(*args).cpu().numpy()[:n]
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = verify_kernel(*args)
+    stop.record()
+    mask = out.cpu().numpy()[:n]  # waits for the launch
+    on_kernel(start.elapsed_time(stop) / 1000)
+    return mask
+
+
+# The verify launch's own time on the card for each batch the backend
+# verifies (on a node, a Core burst), from CUDA events around it: the
+# per-process figure beside crypto.verify.device_seconds, which also
+# holds host prep and the copies.  Warm-ups are not timed.
+_m_kernel_seconds = metrics.histogram("crypto.verify.kernel_seconds")
 
 
 class CudaBackend:
@@ -518,7 +539,9 @@ class CudaBackend:
     ) -> List[bool]:
         return [
             bool(x)
-            for x in verify_batch_arrays(messages, keys, sigs, self._asked)
+            for x in verify_batch_arrays(
+                messages, keys, sigs, self._asked, _m_kernel_seconds.observe
+            )
         ]
 
     async def averify_batch_mask(
@@ -552,7 +575,8 @@ class CudaBackend:
         """Run the verifier once at every padded batch shape a live node
         will hit (up to ``max_claims``, default 64), so the first real
         burst pays no first-launch cost (the library build, the constant
-        upload) on the critical path."""
+        upload) on the critical path.  Explicit ``shapes`` override.  The
+        launches count as warm-ups (:func:`warming`)."""
         if shapes is None:
             top = 64 if max_claims is None else max(16, max_claims)
             shapes, pad = [], 16
@@ -567,5 +591,8 @@ class CudaBackend:
         kp = KeyPair.generate()
         msg = bytes(Digest(b"\x05" * 32))
         sig = kp.sign(Digest(msg))
-        for n in shapes:
-            verify_batch_arrays([msg] * n, [kp.name] * n, [sig] * n, self._asked)
+        with warming():
+            for n in shapes:
+                verify_batch_arrays(
+                    [msg] * n, [kp.name] * n, [sig] * n, self._asked
+                )

@@ -57,7 +57,15 @@ import numpy as np
 import torch
 
 from .. import metrics
-from . import check_launch, kernel_fn, ptr, require, resolve_device, stream_handle
+from . import (
+    check_launch,
+    kernel_fn,
+    ptr,
+    require,
+    resolve_device,
+    stream_handle,
+    warming,
+)
 
 # Kernel observability, under the reference's names (bench JSON keys on
 # them): staged flush sizes and the device work the commit path issues.
@@ -713,13 +721,14 @@ class KernelTusk(Tusk):
         pad = torch.full((C,), W, dtype=torch.int32, device=self.device)
         zero = torch.zeros((C,), dtype=torch.int32, device=self.device)
         rv = torch.zeros((C, n), dtype=torch.int32, device=self.device)
-        ring.shift(1)
-        ring.update((pad, zero, pad, zero, rv))  # both phases of the launch
         flags = torch.zeros((W, n), dtype=torch.bool, device=self.device)
-        leader_commit_scan(
-            ring.parent, ring.exists, flags, flags[:, 0].contiguous(), 0,
-            flags[0].contiguous(),
-        )
+        with warming():
+            ring.shift(1)
+            ring.update((pad, zero, pad, zero, rv))  # both phases of the launch
+            leader_commit_scan(
+                ring.parent, ring.exists, flags, flags[:, 0].contiguous(), 0,
+                flags[0].contiguous(),
+            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

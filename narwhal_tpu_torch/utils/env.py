@@ -48,6 +48,11 @@ _VARS = [
         "metrics endpoint.",
     ),
     EnvVar(
+        "NARWHAL_LOG", "str", None,
+        "Log level for the whole `narwhal.*` hierarchy (equivalent of "
+        "`node run --log-level`; wins over `-v`).",
+    ),
+    EnvVar(
         "NARWHAL_VOTE_FAST_PATH", "flag", True,
         "`0` restores per-header vote persists instead of the coalesced "
         "once-per-burst vote-log flush (round-cadence fast path).",
@@ -65,6 +70,23 @@ _VARS = [
         "its own QUORUM_WINDOW depth). The knee matrix sweeps it; "
         "in-process harnesses may still pass an explicit per-node "
         "override.",
+    ),
+    EnvVar(
+        "NARWHAL_HELPER_MAX_DIGESTS", "int", 128,
+        "Per-BatchRequest digest cap at the worker Helper; unique "
+        "digests past the cap are truncated and counted as "
+        "`worker.helper_rejected_requests`.",
+    ),
+    EnvVar(
+        "NARWHAL_MAX_BATCH_BYTES", "int", None,
+        "Inbound batch-frame size ceiling at the worker receiver; "
+        "oversized frames are rejected before hashing into "
+        "`worker.garbage_batches`. Unset = 2×batch_size + 64 KiB.",
+    ),
+    EnvVar(
+        "NARWHAL_CONSENSUS_AUDIT", "str", None,
+        "Path for the consensus insert/commit audit segment consumed by "
+        "the golden-oracle safety replay; unset = no audit log.",
     ),
     # -- protocol and wire ----------------------------------------------------
     EnvVar(
@@ -120,9 +142,32 @@ _VARS = [
         "(`metrics.trace_evictions` counts overflow).",
     ),
     EnvVar(
+        "NARWHAL_HEALTH", "flag", True,
+        "HealthMonitor master switch on node boot; `0` disables rule "
+        "evaluation entirely.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_INTERVAL", "float", 1.0,
+        "Seconds between health-rule sweeps.",
+    ),
+    EnvVar(
+        "NARWHAL_LOOP_WATCHDOG_MS", "int", 0,
+        "Opt-in event-loop stall watchdog: >0 installs it with this "
+        "threshold (ms). Stalls land in the "
+        "`runtime.loop_stall_seconds` histogram with a stack excerpt in "
+        "`runtime.loop_stall_last`; 0/unset = off.",
+    ),
+    EnvVar(
+        "NARWHAL_PROFILE_HZ", "float", 67.0,
+        "Sampling-profiler frequency (all-thread stack samples/s into "
+        "the `profile.*` series, folded-stack + top-N tables in the "
+        "snapshot detail); `0` disables the sampler thread.",
+    ),
+    EnvVar(
         "NARWHAL_FLIGHT", "flag", True,
-        "`0` stubs the flight recorder's event ring without touching "
-        "the rest of the metrics plane.",
+        "`0` stubs the flight recorder (event ring, tick deltas, and "
+        "the 503/SIGTERM/task-death dumps) without touching the rest "
+        "of the metrics plane.",
     ),
     EnvVar(
         "NARWHAL_FLIGHT_CAP", "int", 512,
@@ -131,9 +176,112 @@ _VARS = [
     EnvVar(
         "NARWHAL_FLIGHT_DIR", "str", None,
         "Directory for atomic flight-ring dump files "
-        "(`flight-<node>-<n>-<reason>.json`) on an unhandled task "
-        "death; unset = no file dumps (the ring stays in every "
-        "registry snapshot).",
+        "(`flight-<node>-<n>-<reason>.json`) on the /healthz 503 "
+        "transition, SIGTERM, and unhandled task death; unset = no "
+        "file dumps (the ring stays pullable via `/debug/flight`).",
+    ),
+    EnvVar(
+        "NARWHAL_FLIGHT_INTERVAL_S", "float", 1.0,
+        "Seconds between flight-recorder `tick` events (per-tick "
+        "wire/commit/queue deltas).",
+    ),
+    EnvVar(
+        "NARWHAL_FAULTHANDLER_S", "float", 0.0,
+        "Arm `faulthandler.dump_traceback_later` every N seconds "
+        "(C-level stack dumps that fire even with a wedged event loop); "
+        "0/unset = off.",
+    ),
+    EnvVar(
+        "NARWHAL_PROFILE", "str", None,
+        "cProfile the whole node, dumping stats into this directory on "
+        "SIGTERM.",
+    ),
+    # -- health-rule thresholds (metrics.default_rules) -----------------------
+    EnvVar(
+        "NARWHAL_HEALTH_MAX_COMMIT_LAG", "float", 20,
+        "`commit_lag` fires when `consensus.commit_lag_rounds` exceeds "
+        "this.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_COMMIT_STALL_S", "float", 10,
+        "`commit_stall` fires when rounds advance but no certificate "
+        "commits for this long.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_PENDING_ACK_FLOOR", "float", 512,
+        "`pending_acks` floor: backlog below this never fires.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_PENDING_ACK_WINDOW_S", "float", 5,
+        "`pending_acks` growth-rate window in seconds.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_PEER_RETRANS_RATE", "float", 10,
+        "`peer_retransmissions` fires above this many retransmits/s to "
+        "one peer.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_PEER_RETRANS_WINDOW_S", "float", 5,
+        "`peer_retransmissions` rate window in seconds.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_PEER_FAILURES", "float", 3,
+        "`peer_unreachable` fires at this many consecutive connect "
+        "failures against one peer (boot-grace gated).",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_QUORUM_WEDGE_S", "float", 10,
+        "`quorum_wedge` fires when a sealed batch waits on its ACK "
+        "quorum this long.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_VOTE_SILENCE_WINDOW_S", "float", 8,
+        "`peer_vote_silence` observation window in seconds.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_VOTE_SILENCE_MIN_ROUNDS", "float", 3,
+        "`peer_vote_silence` requires at least this much round progress "
+        "inside the window.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_STALE_RATE", "float", 6,
+        "`stale_replay` fires above this many stale messages/s — sits "
+        "~2× above the measured partition-heal catch-up burst "
+        "(2.4-2.9/s) and under the 10/s replay-flood attack.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_STALE_WINDOW_S", "float", 5,
+        "`stale_replay` rate window in seconds.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_SYNC_AGE_S", "float", 8,
+        "`batch_withholding` fires when a requested-but-unserved batch "
+        "ages past this (above the stock 5 s sync retry delay).",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_QUEUE_SAT_RATIO", "float", 0.9,
+        "`queue_saturated` fires when an instrumented channel's depth "
+        "reaches this fraction of its capacity.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_QUEUE_SAT_MIN_CAP", "float", 16,
+        "`queue_saturated` ignores channels with capacity below this: "
+        "the quorum admission window and the sim's depth-1 channels run "
+        "full as their backpressure mechanism.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_QUEUE_SAT_INTERVALS", "float", 3,
+        "`queue_saturated` hysteresis: consecutive over-threshold "
+        "evaluations before the rule fires.",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_INGRESS_DROP_RATE", "float", 1.0,
+        "`ingress_drops` fires above this many client-ingress "
+        "overflows/s (`worker.ingress_overflow` rate).",
+    ),
+    EnvVar(
+        "NARWHAL_HEALTH_INGRESS_DROP_WINDOW_S", "float", 5,
+        "`ingress_drops` rate window in seconds.",
     ),
     # -- crypto backend -------------------------------------------------------
     EnvVar(
@@ -141,7 +289,9 @@ _VARS = [
         "Signature-verification backend selected at node boot (equivalent "
         "of `node run --crypto-backend`): `cpu` (serial OpenSSL / "
         "pure-Python fallback) or `cuda` (the batched verifier in "
-        "ops/ed25519.py, one hand-written CUDA kernel launch per batch).",
+        "ops/ed25519.py, one hand-written CUDA kernel launch per batch); "
+        "the reference's names for its batched verifier, `tpu` and "
+        "`jax`, select `cuda`.",
     ),
     EnvVar(
         "NARWHAL_CRYPTO_BACKEND_STRICT", "flag", True,
@@ -174,6 +324,11 @@ _VARS = [
         "latency added ahead of the first message's replay).",
     ),
     # -- fault injection ------------------------------------------------------
+    EnvVar(
+        "NARWHAL_FAULT_PLAN", "str", None,
+        "Path to a Byzantine plan JSON (equivalent of `node run "
+        "--fault-plan`); makes the node ATTACK its committee.",
+    ),
     EnvVar(
         "NARWHAL_FAULT_SEED", "int", None,
         "Overrides the fault plan's RNG seed (rogue keys, twin minting, "

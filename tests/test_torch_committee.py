@@ -1,9 +1,9 @@
 """The port's slice as a whole, on the CPU: committees of primaries on
 loopback TCP that commit.
 
-(a) Four port primaries (``chip_smoke.PortNode``, booted as the
-reference's ``spawn_primary_node`` boots a primary), each verifying on
-the port's ``cpu`` crypto backend and committing through
+(a) Four port primaries (``chip_smoke.PortNode``, booted by the port's
+``spawn_primary_node``), each verifying on the port's ``cpu`` crypto
+backend and committing through
 ``Consensus(use_kernel=True, device="cpu")``, commit at least 5 leaders
 each.  Every node commits the same prefix; each node's sequence is what
 the port's plain ``Tusk`` commits from the certificates in the order that

@@ -173,19 +173,14 @@ def package_state():
 
 MIRRORED_TASKS = mirror(
     globals(), "test_tasks",
-    # The loop-stall watchdog (analysis/watchdog.py) comes with the node,
-    # and the destroyed-task trap is the conftest's, not the package's.
-    skip=("test_watchdog_measures_a_real_stall_and_names_the_stack",
-          "test_watchdog_quiet_loop_observes_nothing",
-          "test_install_from_env",
-          "test_asyncio_trap_catches_destroyed_pending_message"),
-    keep=("narwhal_tpu.analysis.watchdog",),
+    # The destroyed-task trap is the conftest's, not the package's.
+    skip=("test_asyncio_trap_catches_destroyed_pending_message",),
 )
 MIRRORED_QUEUE = mirror(globals(), "test_metrics_queue")
 
 
 def test_mirrors_cover_the_reference_cases():
-    assert len(MIRRORED_TASKS) == 4
+    assert len(MIRRORED_TASKS) == 7
     assert len(MIRRORED_QUEUE) == 5
 
 
