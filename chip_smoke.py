@@ -40,7 +40,17 @@ it and read just after, and then the node CLI in processes of its own:
   primaries' commit sequences must agree and hold 20 leaders, each must
   be what the plain ``Tusk`` commits from the certificates of that
   primary's store, and every primary's snapshot must show each of the
-  three kernels launched on the card outside the boot's warm-ups.
+  three kernels launched on the card outside the boot's warm-ups;
+- ``faults``: the node phase's deployment under the fault suite's
+  published plans (:func:`faults_scenario`): authority 2 signs its
+  headers with a wrong key, authority 3 equivocates, and authority 6 is
+  SIGKILLed at 12 s and restarted at 18 s over its store, every primary
+  on the card; every honest authority's audit segments must replay
+  cleanly through the port's golden oracle, their commits must form one
+  prefix, the wrong-key headers must be rejected by the card's verifier
+  and the equivocation detected, authority 6 must restore its consensus
+  frontier on the card and commit again, and the ``invalid_signature``,
+  ``equivocation`` and ``peer_unreachable`` rules must fire.
 
 One JSON line per phase; the line before the last is the card's name and
 power limit as nvidia-smi reports them, and the last line is
@@ -2014,13 +2024,15 @@ class NodeProcesses:
     def __init__(self, workdir: str) -> None:
         self.workdir = workdir
         self.procs = {}
+        self.envs = {}  # {name: the child's environment}
         self.env = dict(os.environ, PYTHONPATH=HERE)
 
     def start(self, name: str, argv, env=None):
+        self.envs[name] = dict(self.env, **(env or {}))
         with open(self.log_path(name), "w") as f:
             self.procs[name] = subprocess.Popen(
                 argv, stdout=f, stderr=subprocess.STDOUT, cwd=HERE,
-                env=dict(self.env, **(env or {})))
+                env=self.envs[name])
         return self.procs[name]
 
     def log_path(self, name: str) -> str:
@@ -2159,23 +2171,109 @@ def split_client_logs(client_logs, at: float):
     return halves
 
 
+# fault_bench.py's _RESTART_SETTLE_S: boot, store replay and catch-up a
+# restarted node is allowed before it must commit clients' payload again.
+RESTART_SETTLE_S = 10.0
+BOOT_DEADLINE_S = 90.0
+
+
+def _log_local_time(line: str) -> float:
+    """A node log line's time: ``%(asctime)s`` is local time (the trailing
+    Z is cosmetic), as fault_bench.py reads it."""
+    from datetime import datetime
+
+    return datetime.strptime(line.split(" ", 1)[0].rstrip("Z"),
+                             "%Y-%m-%dT%H:%M:%S.%f").timestamp()
+
+
+def payload_commits_after(log: str, at: float, above: int = 0) -> int:
+    """A primary's clients'-payload commit lines (``Committed B… -> …``,
+    logged with ``--benchmark``) stamped at or after ``at``, of rounds
+    past ``above``."""
+    n = 0
+    for line in log.splitlines():
+        m = _COMMITTED.search(line)
+        if m and " -> " in line and int(m.group(1)) > above:
+            try:
+                n += _log_local_time(line) >= at
+            except ValueError:
+                continue
+    return n
+
+
+def store_head(store_path: str, committee) -> int:
+    """The highest round of a certificate in a primary's store (0: none)."""
+    return max((c.round for c in stored_certificates(store_path, committee)),
+               default=0)
+
+
+def write_plans(workdir: str, scenario, keys) -> dict:
+    """A ``--fault-plan`` file for each Byzantine authority of a parsed
+    ``FaultScenario``, as fault_bench.py writes them; returns {authority:
+    path}."""
+    plans = {}
+    for b in scenario.byzantine:
+        plan = {"behaviors": b.behaviors, "seed": scenario.seed ^ (b.node + 1),
+                "replay_interval_ms": b.replay_interval_ms,
+                "flood_interval_ms": b.flood_interval_ms,
+                "garbage_bytes": b.garbage_bytes}
+        if b.targets:
+            plan["withhold_targets"] = [keys[t].name.encode_base64() for t in b.targets]
+        plans[b.node] = os.path.join(workdir, f"byzantine-{b.node}.json")
+        with open(plans[b.node], "w") as f:
+            json.dump(plan, f, indent=1)
+    return plans
+
+
 def run_node_committee(workdir: str, n: int, base_port: int, rate: int,
                        load_s: float, primary_flags=(), primary_boot=(BOOTED,),
-                       boot_deadline_s: float = 90.0, prewarm=None) -> dict:
+                       prewarm=None, scenario=None) -> dict:
     """Start a committee as ``benchmark/local_bench.py::run_bench`` does,
     with ``narwhal_tpu_torch.node`` in place of ``narwhal_tpu.node``: the
     ``prewarm`` command first (argv, run to its end), then a primary and
     a worker process an authority, and once every node has logged its
     boot lines a benchmark client a worker at ``rate`` tx/s for ``load_s``
-    seconds; then stop all.  Returns what the checks read: exit codes,
-    logs, commit sequences, the header authors, the snapshots."""
+    seconds; then stop all.
+
+    With ``scenario`` (a ``FaultScenario`` object for these ``n``,
+    ``rate`` × ``n`` and ``load_s``), run it as
+    ``benchmark/fault_bench.py::run_scenario`` does: a plan file per
+    Byzantine authority, passed to its primary and its worker; an audit
+    segment per primary life (``NARWHAL_CONSENSUS_AUDIT``); the
+    scenario's env and ``NARWHAL_FAULT_SEED`` in every child.  Its clock
+    starts when the clients do (fault_bench starts it before the boot,
+    which on the card takes longer than its first fault's offset): each
+    crash SIGKILLs the authority's primary and worker and reads the head
+    of its store, and its restart starts the same commands again.  After
+    the load, the clients keep sending until every surviving honest
+    primary has committed clients' payload after the last restart plus
+    :data:`RESTART_SETTLE_S`, a restarted one of rounds past its store's
+    head at the crash (the scenario's ``progress_wait`` at most).
+
+    Returns what the checks read: exit codes, logs and commit sequences
+    by process, each authority's primary lives, the stores' certificates
+    and the header authors, the snapshots."""
     import shutil
 
     from narwhal_tpu_torch.config import Parameters
 
     shutil.rmtree(workdir, ignore_errors=True)
     keys, committee = node_files(workdir, n, base_port, NODE_SALT)
-    out = {"committee": committee, "processes": 0}
+    plans, base_env = {}, {}
+    if scenario is not None:
+        from narwhal_tpu_torch.faults.spec import parse_scenario
+
+        with open(os.path.join(workdir, "scenario.json"), "w") as f:
+            json.dump(scenario, f, indent=1)
+        parsed = parse_scenario(scenario, env={})
+        plans = write_plans(workdir, parsed, keys)
+        base_env = {"NARWHAL_FAULT_SEED": str(parsed.seed),
+                    "NARWHAL_FLIGHT_DIR": os.path.join(workdir, "flight"),
+                    **parsed.env}
+    out = {"committee": committee, "scenario": scenario, "processes": 0,
+           "byzantine": sorted(plans), "lives": {}, "segments": {},
+           "metrics_paths": {}, "crash_heads": {},
+           "gc_depth": Parameters().gc_depth}
     t0 = time.monotonic()
     if prewarm is not None:
         with open(os.path.join(workdir, "prewarm.log"), "w") as f:
@@ -2184,36 +2282,102 @@ def run_node_committee(workdir: str, n: int, base_port: int, rate: int,
                                 timeout=600).returncode
         out["prewarm_s"], out["processes"] = time.monotonic() - t0, 1
         assert rc == 0, f"prewarm exited {rc}"
-    primaries = [f"primary-{i}" for i in range(n)]
-    workers = [f"worker-{i}" for i in range(n)]
-    clients = [f"client-{i}" for i in range(n)]
+
+    def start(procs, i):
+        """Authority ``i``'s primary and worker, a new life."""
+        life = len(out["lives"].setdefault(i, []))
+        suffix = "" if life == 0 else f".r{life}"
+        primary, worker = f"primary-{i}{suffix}", f"worker-{i}{suffix}"
+        out["lives"][i].append(primary)
+        plan = ("--fault-plan", plans[i]) if i in plans else ()
+        snapshot = os.path.join(workdir, "metrics-{}-%d%s.json" % (i, suffix)).format
+        out["metrics_paths"][primary] = snapshot("primary")
+        env = dict(base_env)
+        if scenario is not None:
+            audit = os.path.join(workdir, f"audit-primary-{i}.seg{life}.bin")
+            out["segments"].setdefault(i, []).append(audit)
+            env.update(NARWHAL_FAULT_NODE=f"primary-{i}", NARWHAL_CONSENSUS_AUDIT=audit)
+        procs.start(primary, node_command(
+            workdir, i, "primary", "--benchmark", *primary_flags, *plan,
+            "--metrics-path", snapshot("primary")), env=env)
+        procs.start(worker, node_command(
+            workdir, i, ("worker", "--id", "0"), "--benchmark", *plan,
+            "--metrics-path", snapshot("worker")),
+            env=dict(base_env, **({"NARWHAL_FAULT_NODE": f"worker-{i}-0"}
+                                  if scenario is not None else {})))
+
+    crashes = [] if scenario is None else parsed.crash
+    events = sorted([(c.at_s, "crash", c.node) for c in crashes]
+                    + [(c.restart_at_s, "restart", c.node)
+                       for c in crashes if c.restart_at_s is not None])
+    honest = [i for i in range(n) if i not in plans]
     with NodeProcesses(workdir) as procs:
         t_start = time.monotonic()
         for i in range(n):
-            snapshot = os.path.join(workdir, f"metrics-{{}}-{i}.json").format
-            procs.start(primaries[i], node_command(
-                workdir, i, "primary", "--benchmark", *primary_flags,
-                "--metrics-path", snapshot("primary")))
-            procs.start(workers[i], node_command(
-                workdir, i, ("worker", "--id", "0"), "--benchmark",
-                "--metrics-path", snapshot("worker")))
+            start(procs, i)
         missing = procs.wait_for(
-            {**{p: list(primary_boot) for p in primaries},
-             **{w: [BOOTED] for w in workers}}, boot_deadline_s)
+            {**{f"primary-{i}": list(primary_boot) for i in range(n)},
+             **{f"worker-{i}": [BOOTED] for i in range(n)}}, BOOT_DEADLINE_S)
         assert not missing, f"nodes not booted: {missing}"
         out["boot_s"] = time.monotonic() - t_start
         for i in range(n):
             address = committee.worker(keys[i].name, 0).transactions
-            procs.start(clients[i], client_command(address, rate, i))
+            procs.start(f"client-{i}", client_command(address, rate, i), env=base_env)
         t_load = time.time()
-        time.sleep(load_s)
+        out["events"] = []
+        for at_s, kind, i in events:
+            time.sleep(max(0.0, t_load + at_s - time.time()))
+            if kind == "crash":
+                primary = out["lives"][i][-1]
+                for name in (primary, primary.replace("primary", "worker", 1)):
+                    procs.procs[name].kill()  # SIGKILL: the torn tail is the point
+                    procs.procs[name].wait()
+                # The head of the store the next life restores from, read
+                # from a copy: opening a store cuts its torn tail.
+                copy = os.path.join(workdir, f"crash-{primary}.store.log")
+                shutil.copyfile(
+                    os.path.join(workdir, f"db-primary-{i}", "store.log"), copy)
+                out["crash_heads"][i] = store_head(copy, committee)
+            else:
+                start(procs, i)
+            out["events"].append((kind, i, time.time() - t_load))
+        time.sleep(max(0.0, t_load + load_s - time.time()))
+        if scenario is not None:
+            settle = max([c.restart_at_s + RESTART_SETTLE_S for c in crashes
+                          if c.restart_at_s is not None], default=0.0)
+            out["settle_ts"] = t_load + settle
+            end = time.time() + parsed.progress_wait
+            while True:
+                late = {i: payload_commits_after(
+                            procs.log(out["lives"][i][-1]), out["settle_ts"],
+                            above=out["crash_heads"].get(i, 0)) for i in honest}
+                if all(late.values()) or time.time() >= end:
+                    break
+                time.sleep(1.0)
+            out["payload_commits_after_settle"] = late
+        out["load_s"] = time.time() - t_load
         codes = procs.stop()
         out["wall_s"] = time.monotonic() - t_start
         out["processes"] += len(procs.procs)
+    out["children_env"] = procs.envs
     out["codes"] = codes
     out["logs"] = {name: procs.log(name) for name in codes}
-    out["load_window"] = (t_load, time.time())
-    out["sequences"] = [commit_sequence(out["logs"][p]) for p in primaries]
+    out["load_window"] = (t_load, t_load + out["load_s"])
+    out["sequences"] = {name: commit_sequence(out["logs"][name])
+                        for lives in out["lives"].values() for name in lives}
+    # Each restart's (store head at its crash, highest round its life
+    # committed): past the head, it took certificates from the committee.
+    out["rejoined_rounds"] = {
+        i: (head, max((r for r, _ in out["sequences"][out["lives"][i][-1]]), default=0))
+        for i, head in out["crash_heads"].items() if len(out["lives"][i]) > 1}
+    # Seconds from each restart to its primary's boot line (None: never).
+    out["restart_boot_s"] = {}
+    for kind, i, at in out["events"]:
+        if kind == "restart":
+            booted = [line for line in out["logs"][out["lives"][i][-1]].splitlines()
+                      if BOOTED in line]
+            out["restart_boot_s"][i] = (
+                _log_local_time(booted[0]) - (t_load + at) if booted else None)
     out["certificates"] = [
         stored_certificates(
             os.path.join(workdir, f"db-primary-{i}", "store.log"), committee)
@@ -2221,11 +2385,11 @@ def run_node_committee(workdir: str, n: int, base_port: int, rate: int,
     # {header as the log prints it: its author}
     out["origins"] = {repr(c.header.id): c.origin
                       for certs in out["certificates"] for c in certs}
-    out["gc_depth"] = Parameters().gc_depth
-    out["snapshots"] = []
-    for i in range(n):
-        with open(os.path.join(workdir, f"metrics-primary-{i}.json")) as f:
-            out["snapshots"].append(json.load(f))
+    out["snapshots"] = {}
+    for name, path in out["metrics_paths"].items():
+        if os.path.exists(path):  # a SIGKILLed life may have written none
+            with open(path) as f:
+                out["snapshots"][name] = json.load(f)
     out["seconds"] = time.monotonic() - t0
     return out
 
@@ -2254,12 +2418,12 @@ def node_checks(run: dict, min_leaders: int) -> dict:
                         NODE_TX_SIZE)
     assert result.errors == [], result.errors
     assert result.samples > 0, "no sample transaction committed"
-    seqs = run["sequences"]
+    joined, replayed = replay_checks(run, sorted(run["lives"]))
+    seqs = [joined[i] for i in sorted(joined)]
     for i in range(len(seqs)):
         for j in range(i + 1, len(seqs)):
             k = min(len(seqs[i]), len(seqs[j]))
             assert seqs[i][:k] == seqs[j][:k], f"primaries {i} and {j} disagree"
-    replayed = replay_checks(run)
     leaders = [committed_leaders(s, run["origins"], run["committee"]) for s in seqs]
     shortest = min(range(len(seqs)), key=lambda i: len(seqs[i]))
     assert leaders[shortest] >= min_leaders, (
@@ -2278,28 +2442,60 @@ def node_checks(run: dict, min_leaders: int) -> dict:
         samples=result.samples, committed_batches=result.committed_batches,
         committed_bytes=result.committed_bytes, rate_misses=result.rate_misses,
         config=result.config, prefix_agrees=True, replay_equal=True,
-        replayed_headers=replayed,
+        replayed_headers=[replayed[i] for i in sorted(replayed)],
         committed_headers=[len(s) for s in seqs], leaders_committed=leaders,
     )
 
 
-def replay_checks(run: dict) -> list:
-    """Each primary's commit sequence is a prefix of what the port's
-    plain ``Tusk`` (on the CPU) commits given the certificates of that
-    primary's store by round: the same commit rule without the kernels,
-    so a decision all ten primaries make the same wrong way fails here.
-    Returns the replayed sequences' lengths."""
+def joined_sequence(lives, replay) -> list:
+    """One authority's commit sequence over its lives (one sequence each),
+    held to ``replay``, the plain ``Tusk``'s sequence over its store: the
+    first life must be a prefix of it, and each later life a run of it
+    that starts no later than where the lives before it ended (a restart
+    may commit again what its last life committed after its checkpoint).
+    Returns the joined sequence."""
+    joined = list(lives[0])
+    assert replay[:len(joined)] == joined, "first life != plain Tusk over its store"
+    for life in lives[1:]:
+        starts = [k for k in range(len(joined) + 1)
+                  if replay[k:k + len(life)] == life]
+        assert life and starts, "a restarted life is not a run of plain Tusk's sequence"
+        joined = replay[:max(len(joined), starts[0] + len(life))]
+    return joined
+
+
+def replay_checks(run: dict, authorities) -> tuple:
+    """Each authority's commit sequence over its primary's lives is what
+    the port's plain ``Tusk`` (on the CPU) commits given the certificates
+    of that primary's store by round (:func:`joined_sequence`): the same
+    commit rule without the kernels, so a decision all primaries make the
+    same wrong way fails here.  Returns ({authority: its joined
+    sequence}, {authority: the replayed sequence's length})."""
     from narwhal_tpu_torch.consensus import Tusk
 
-    lengths = []
-    for i, (seq, certs) in enumerate(zip(run["sequences"], run["certificates"])):
+    joined, lengths = {}, {}
+    for i in authorities:
         tusk = Tusk(run["committee"], run["gc_depth"])
         want = [(c.round, repr(c.header.id))
-                for cert in certs for c in tusk.process_certificate(cert)]
-        assert seq and want[:len(seq)] == seq, (
-            f"primary-{i}: its commit sequence != plain Tusk over its store")
-        lengths.append(len(want))
-    return lengths
+                for cert in run["certificates"][i]
+                for c in tusk.process_certificate(cert)]
+        lives = [run["sequences"][name] for name in run["lives"][i]]
+        try:
+            joined[i] = joined_sequence(lives, want)
+        except AssertionError as e:
+            raise AssertionError(f"primary-{i}: {e}") from None
+        assert joined[i], f"primary-{i}: committed nothing"
+        lengths[i] = len(want)
+    return joined, lengths
+
+
+def verify_launches_timed(launches: int, timed: int, bursts: int) -> bool:
+    """Every verify launch of a primary is timed by CUDA events: one a
+    burst, and the odd batch of another site.  A burst still on the
+    backend's dispatch thread at shutdown runs to its end before the
+    node's final snapshot (``CudaBackend.averify_batch_mask_timed``), so
+    that snapshot holds both counts or neither."""
+    return launches == timed >= bursts
 
 
 def _hist(snap: dict, name: str) -> dict:
@@ -2322,8 +2518,8 @@ def phase_node():
     checks = node_checks(run, NODE_MIN_LEADERS)
     assert run["wall_s"] <= NODE_CAP_S, f"node phase took {run['wall_s']:.1f} s"
     per_primary = []
-    for i, snap in enumerate(run["snapshots"]):
-        log = run["logs"][f"primary-{i}"]
+    for i in range(NODE_N):
+        snap, log = run["snapshots"][f"primary-{i}"], run["logs"][f"primary-{i}"]
         assert "Crypto backend: cuda (requested cuda)" in log, f"primary-{i}"
         counters = snap["counters"]
         device = _hist(snap, "crypto.verify.device_seconds.batch_burst")
@@ -2342,9 +2538,7 @@ def phase_node():
         warmup = {k: counters.get(f"kernel.warmup_launches.{k}", 0)
                   for k in NODE_KERNELS}
         assert all(launches.values()), f"primary-{i}: launches {launches}"
-        # Every verify launch is timed by CUDA events: one a burst, and
-        # the odd batch of another site.
-        assert launches["ed25519_verify"] == kernel["count"] >= bursts, (
+        assert verify_launches_timed(launches["ed25519_verify"], kernel["count"], bursts), (
             f"primary-{i}: {launches['ed25519_verify']} verify launches, "
             f"{kernel['count']} timed, {bursts} bursts")
         rounds = _hist(snap, "primary.round_advance_seconds")
@@ -2384,6 +2578,242 @@ def phase_node():
         node_launches={k: sum(p["launches"][k] for p in per_primary)
                        for k in NODE_KERNELS},
         **checks, primaries=per_primary,
+    )
+    emit(result)
+    return result
+
+
+# -- the faults phase ---------------------------------------------------------
+# The node phase's deployment (N=10, stake 1, one worker an authority, the
+# default Parameters, ten clients at 1,000 tx/s of 512 B) under the fault
+# suite's own published plans (benchmark/scenarios/): wrong_key on
+# authority 2 (byz_wrong_key.json), equivocate on authority 3
+# (byz_equivocate.json), and crash_restart.json's SIGKILL at 12 s and
+# restart at 18 s over the same store, moved to authority 6 since its
+# node 2 is the wrong-key attacker here.  Run as
+# benchmark/fault_bench.py::run_scenario runs a scenario, through the port's
+# node CLI, and judged by the port's own golden replay.
+FAULTS_BASE_PORT = 10000
+FAULTS_LOAD_S = 30.0
+FAULTS_CAP_S = 200.0  # from the first node's start to the last exit
+FAULTS_MIN_LEADERS = 15
+FAULTS_CRASHED = 6
+FAULTS_WORKDIR = os.path.join(HERE, "build", "faults_phase")
+RESTORED = re.compile(r"Restored consensus frontier at round (\d+)")
+
+
+def faults_scenario(n: int = NODE_N, rate: int = NODE_RATE,
+                    load_s: float = FAULTS_LOAD_S, byzantine=None,
+                    crashed: int = FAULTS_CRASHED) -> dict:
+    """The faults phase's scenario as one ``FaultScenario`` object, built
+    from the published plans under ``benchmark/scenarios/`` (read as
+    data): their Byzantine entries (``byzantine`` names the files to take
+    them from), crash_restart.json's timing and env with the crash on
+    authority ``crashed`` (None: no crash), and the rules they expect."""
+    def plan(name):
+        with open(os.path.join(HERE, "benchmark", "scenarios", name + ".json")) as f:
+            return json.load(f)
+
+    byzantine = ("byz_wrong_key", "byz_equivocate") if byzantine is None else byzantine
+    plans = [plan(name) for name in byzantine]
+    spec = {
+        "name": "port_faults_n%d" % n, "nodes": n, "workers": 1,
+        "rate": rate * n, "tx_size": NODE_TX_SIZE, "duration": load_s, "seed": 7,
+        "byzantine": [b for p in plans for b in p["byzantine"]],
+        "expect": {"rules": [r for p in plans for r in p["expect"]["rules"]]},
+        "progress_wait": max([p["progress_wait"] for p in plans], default=30),
+    }
+    if crashed is not None:
+        crash = plan("crash_restart")
+        spec["crash"] = [dict(c, node=crashed) for c in crash["crash"]]
+        spec["env"] = crash["env"]
+        spec["expect"]["rules"] += crash["expect"]["rules"]
+        spec["progress_wait"] = max(spec["progress_wait"], crash["progress_wait"])
+    return spec
+
+
+def fired_rules(snap: dict, log: str) -> set:
+    """The health rules a primary saw fire: FIRING events in its
+    snapshot's ``health`` section, and its ``HEALTH anomaly FIRING`` log
+    lines (the section keeps the last 64 transitions only)."""
+    health = snap.get("health") or {}
+    fired = {e["rule"] for e in health.get("events", []) if e.get("event") == "FIRING"}
+    fired |= {f["rule"] for f in health.get("firing", [])}
+    fired |= set(re.findall(r"HEALTH anomaly FIRING rule=(\w+)", log))
+    return fired
+
+
+def fault_checks(run: dict, min_leaders: int) -> dict:
+    """The fault suite's three verdicts over a run of
+    :func:`run_node_committee` with a scenario, with the port's own judge:
+    safety (every honest authority's audit segments replayed by
+    ``narwhal_tpu_torch.consensus.replay.replay_segments``, their commits
+    a common prefix by ``cross_node_prefix``, and each honest primary's
+    logged sequence what the plain ``Tusk`` commits over its store,
+    :func:`replay_checks`), liveness (clients' payload committed on every
+    surviving honest primary after the last restart settled, a restarted
+    one past its store's head at the crash; the shortest honest sequence
+    holds ``min_leaders`` leaders) and detection (each expected rule fired
+    on an honest primary).  Every honest process but a crashed life must
+    have exited 0.  Returns the figures."""
+    from narwhal_tpu_torch.consensus.replay import cross_node_prefix, replay_segments
+
+    committee, n = run["committee"], len(run["lives"])
+    honest = [i for i in range(n) if i not in run["byzantine"]]
+    killed = {name.replace("primary", role, 1)
+              for i in range(n) for name in run["lives"][i][:-1]
+              for role in ("primary", "worker")}
+    bad = {name: code for name, code in run["codes"].items()
+           if code != 0 and name not in killed
+           and (name.startswith("client")
+                or int(name.split("-")[1].split(".")[0]) in honest)}
+    assert not bad, f"processes exited non-zero: {bad}"
+    verdicts, digests = {}, {}
+    for i in honest:
+        v = replay_segments(committee, run["gc_depth"], run["segments"][i])
+        digests[f"primary-{i}"] = v.pop("commit_digests")
+        verdicts[f"primary-{i}"] = v
+        assert v["ok"] and v["recorded_commits"] > 0, f"primary-{i}: replay {v}"
+    cross = cross_node_prefix(digests)
+    assert cross["ok"], f"cross-node prefix: {cross}"
+    sequences, replayed = replay_checks(run, honest)
+    leaders = {i: committed_leaders(s, run["origins"], committee)
+               for i, s in sequences.items()}
+    assert min(leaders.values()) >= min_leaders, (
+        f"the shortest honest commit sequence holds {min(leaders.values())} leaders")
+    # A restarted primary that only commits again what its store held has
+    # not rejoined the committee: it must commit a round past that head.
+    rejoined = {i: r for i, r in run["rejoined_rounds"].items() if i in honest}
+    for i, (head, last) in rejoined.items():
+        assert last > head, (
+            f"primary-{i}: its last life committed up to round {last}, "
+            f"not past round {head}, its store's head at the crash")
+    late = run["payload_commits_after_settle"]
+    assert all(late.values()), f"no payload commits after the settle point: {late}"
+    fired = set()
+    for i in honest:
+        name = run["lives"][i][-1]
+        fired |= fired_rules(run["snapshots"].get(name, {}), run["logs"][name])
+    expected = run["scenario"]["expect"]["rules"]
+    missing = [r for r in expected if r not in fired]
+    assert not missing, f"health rules never fired on an honest primary: {missing}"
+    return dict(
+        safety={"ok": True, "nodes": verdicts, "cross_node": cross,
+                "replay_equal": True, "replayed_headers": replayed},
+        liveness={"ok": True, "payload_commits_after_settle": late,
+                  "rejoined_rounds": rejoined,
+                  "leaders_committed": leaders,
+                  "committed_headers": {i: len(s) for i, s in sequences.items()}},
+        detection={"ok": True, "expected": expected, "fired": sorted(fired)},
+    )
+
+
+def phase_faults():
+    """The node phase's deployment under attack on one card: ten port
+    validators through the node CLI, every primary verifying on the
+    ``cuda`` backend and committing through ``KernelTusk``, authority 2
+    signing its headers with a wrong key, authority 3 equivocating and
+    authority 6 SIGKILLed and restarted over its store; judged by the
+    port's own golden replay, and by the card's counts that the attack
+    met its kernels."""
+    ports = check_port_block(FAULTS_BASE_PORT, 5 * NODE_N)
+    node = [sys.executable, "-m", "narwhal_tpu_torch.node"]
+    spec = faults_scenario()
+    run = run_node_committee(
+        FAULTS_WORKDIR, NODE_N, FAULTS_BASE_PORT, NODE_RATE, FAULTS_LOAD_S,
+        primary_flags=("--crypto-backend", "cuda", "--experimental-consensus-kernel"),
+        primary_boot=CARD_PRIMARY_BOOT,
+        prewarm=node + ["prewarm", "--committee",
+                        os.path.join(FAULTS_WORKDIR, "committee.json"),
+                        "--experimental-consensus-kernel"],
+        scenario=spec)
+    # No child may be let off the card: a strict cuda request fails at
+    # boot instead of falling back to the cpu backend.
+    strict_off = [name for name, env in run["children_env"].items()
+                  if env.get("NARWHAL_CRYPTO_BACKEND_STRICT") == "0"]
+    assert not strict_off, f"NARWHAL_CRYPTO_BACKEND_STRICT=0 for {strict_off}"
+    checks = fault_checks(run, FAULTS_MIN_LEADERS)
+    assert run["wall_s"] <= FAULTS_CAP_S, f"faults phase took {run['wall_s']:.1f} s"
+    honest = [i for i in range(NODE_N) if i not in run["byzantine"]]
+    wrong_key = [b["node"] for b in spec["byzantine"] if "wrong_key" in b["behaviors"]]
+    # Launches summed over the lives that stopped on SIGTERM (their final
+    # snapshots), and apart, over the SIGKILLed lives' last periodic
+    # snapshots: those miss what a life launched after its last one.
+    per_primary = []
+    totals, killed = ({k: 0 for k in NODE_KERNELS} for _ in range(2))
+    for i in range(NODE_N):
+        for life, name in enumerate(run["lives"][i]):
+            last = life == len(run["lives"][i]) - 1
+            snap = run["snapshots"].get(name)
+            if snap is None:
+                assert not last, f"{name}: no snapshot"
+                continue  # a SIGKILLed life may leave none
+            counters = snap["counters"]
+            launches = {k: counters.get(f"kernel.launches.{k}", 0) for k in NODE_KERNELS}
+            for k in NODE_KERNELS:
+                (totals if last else killed)[k] += launches[k]
+            device = _hist(snap, "crypto.verify.device_seconds.batch_burst")
+            kernel = _hist(snap, "crypto.verify.kernel_seconds")
+            rounds = _hist(snap, "primary.round_advance_seconds")
+            record = dict(
+                name=name, honest=i in honest,
+                behaviors=next((b["behaviors"] for b in spec["byzantine"]
+                                if b["node"] == i), []),
+                bursts=device["count"],
+                invalid_signatures=counters.get("primary.invalid_signatures", 0),
+                equivocations=counters.get("primary.equivocations_detected", 0),
+                wrong_key_headers=counters.get("faults.byzantine.wrong_key_headers", 0),
+                twins_minted=counters.get("faults.byzantine.twins_minted", 0),
+                leaders=checks["liveness"]["leaders_committed"].get(i),
+                ms_per_round=1000 * rounds["sum"] / max(1, rounds["count"]),
+                ms_backend_per_burst=1000 * device["sum"] / max(1, device["count"]),
+                ms_kernel_per_burst=1000 * kernel["sum"] / max(1, kernel["count"]),
+                launches=launches,
+                warmup_launches={k: counters.get(f"kernel.warmup_launches.{k}", 0)
+                                 for k in NODE_KERNELS},
+            )
+            per_primary.append(record)
+            if i in honest:
+                log = run["logs"][name]
+                assert "Crypto backend: cuda (requested cuda)" in log, name
+                assert all(launches.values()), f"{name}: launches {launches}"
+                assert device["count"] and verify_launches_timed(
+                        launches["ed25519_verify"], kernel["count"], device["count"]), (
+                    f"{name}: {launches['ed25519_verify']} verify launches, "
+                    f"{kernel['count']} timed, {device['count']} bursts")
+    by_name = {p["name"]: p for p in per_primary}
+    for i in wrong_key:
+        assert by_name[f"primary-{i}"]["wrong_key_headers"] > 0, f"primary-{i}"
+    honest_records = [p for p in per_primary if p["honest"]]
+    invalid = sum(p["invalid_signatures"] for p in honest_records)
+    equivocations = sum(p["equivocations"] for p in honest_records)
+    assert invalid > 0, "no honest primary rejected a signature"
+    assert equivocations > 0, "no honest primary detected an equivocation"
+    # The crashed authority's second life: restored from its store on the
+    # card, launching the update and the scan again, its segment committing.
+    from narwhal_tpu_torch.consensus.replay import TAG_COMMIT, read_audit
+
+    second = run["lives"][FAULTS_CRASHED][-1]
+    restored = RESTORED.search(run["logs"][second])
+    assert len(run["lives"][FAULTS_CRASHED]) == 2 and restored, (
+        f"{second}: no restored consensus frontier")
+    assert all(by_name[second]["launches"].values()), f"{second}: {by_name[second]}"
+    segment_commits = sum(tag == TAG_COMMIT for tag, _ in read_audit(
+        run["segments"][FAULTS_CRASHED][-1]))
+    assert segment_commits > 0, f"{second}: its audit segment records no commit"
+    result = dict(
+        phase="faults", scenario=spec, committee=NODE_N,
+        rate_per_client=NODE_RATE, tx_size=NODE_TX_SIZE, load_s=run["load_s"],
+        host_cpus=os.cpu_count(), processes=run["processes"],
+        prewarm_s=run["prewarm_s"], boot_s=run["boot_s"], wall_s=run["wall_s"],
+        seconds=run["seconds"], events=run["events"], nvidia_smi=nvidia_smi_line(),
+        **ports, restore_round=int(restored.group(1)),
+        restart_boot_s=run["restart_boot_s"][FAULTS_CRASHED],
+        restored_segment_commits=segment_commits,
+        invalid_signatures=invalid, equivocations=equivocations,
+        faults_launches=totals, faults_launches_killed_life_lower_bound=killed,
+        crash_heads=run["crash_heads"],
+        verdicts=checks, primaries=per_primary,
     )
     emit(result)
     return result
@@ -2445,6 +2875,7 @@ def main() -> int:
     main = phase_main_path(keys, committee, signed, rng)
     committee_run = phase_committee()
     node_run = phase_node()
+    faults_run = phase_faults()
 
     # Each kernel's launches on the path that carries it: the flagship
     # commit step for its one launch, the main path's live-window check
@@ -2469,6 +2900,13 @@ def main() -> int:
             if name in NODE_KERNELS else {}),
          **({"node_bursts": node_run["node_bursts"]}
             if name == "ed25519_verify" else {}),
+         # The same three kernels' launches in the faults phase, summed
+         # over the primary lives that stopped on SIGTERM; the SIGKILLed
+         # life's, from its last periodic snapshot, apart.
+         **({"faults_launches": faults_run["faults_launches"][name],
+             "faults_launches_killed_life_lower_bound":
+                 faults_run["faults_launches_killed_life_lower_bound"][name]}
+            if name in NODE_KERNELS else {}),
          **({"node_dispatches": node_run["node_dispatches"]}
             if name == "window_update" else {}),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],

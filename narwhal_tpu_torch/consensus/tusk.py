@@ -1198,10 +1198,18 @@ class Consensus:
         # frontier this instance booted with.
         self._audit = None
         if audit_path:
-            raise NotImplementedError(
-                "audit segments need consensus/replay.py, which the port "
-                "does not have yet"
-            )
+            from .replay import AuditWriter
+
+            self._audit = AuditWriter(audit_path)
+            self._audit.restore_marker(restored_blob)
+            # The rule marker makes every segment self-describing: the
+            # replay judge picks the matching frozen oracle per segment
+            # (GoldenTusk / GoldenLowDepthTusk / GoldenMultiLeaderTusk)
+            # instead of assuming a process-wide flag — a flag-flip
+            # sweep's arms then judge themselves correctly with no
+            # harness plumbing.
+            self._audit.rule_marker(rule)
+            self._audit.flush()
 
     async def run(self) -> None:
         while True:

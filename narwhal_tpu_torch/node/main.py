@@ -409,10 +409,19 @@ def main(argv=None) -> int:
         fault_plan = None
         plan_path = args.fault_plan or env_str("NARWHAL_FAULT_PLAN")
         if plan_path:
-            raise NotImplementedError(
-                "--fault-plan needs faults/byzantine.py, which the port "
-                "does not have yet"
+            from ..faults.byzantine import ByzantinePlan
+
+            fault_plan = ByzantinePlan.load(plan_path)
+            active = (
+                fault_plan.primary_behaviors()
+                if args.role == "primary"
+                else fault_plan.worker_behaviors()
             )
+            if active:
+                logging.getLogger("narwhal.node").warning(
+                    "FAULT INJECTION ACTIVE: byzantine %s behaviors %s",
+                    args.role, sorted(active),
+                )
 
         if args.role == "primary":
             node = await spawn_primary_node(

@@ -565,9 +565,16 @@ class CudaBackend:
             mask = self.verify_batch_mask(messages, keys, sigs)
             return mask, time.perf_counter() - t0
 
-        return await asyncio.get_running_loop().run_in_executor(
-            self._executor, timed
-        )
+        job = asyncio.get_running_loop().run_in_executor(self._executor, timed)
+        try:
+            return await asyncio.shield(job)
+        except asyncio.CancelledError:
+            # A burst already handed to the dispatch thread runs to its
+            # end there anyway: the caller's cancellation completes only
+            # after it, so a snapshot taken once the node has shut down
+            # holds its launch's count and its timing together.
+            await asyncio.wait([job])
+            raise
 
     def warmup(
         self, shapes: Sequence[int] = None, max_claims: int = None

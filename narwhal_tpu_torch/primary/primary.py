@@ -190,12 +190,10 @@ class Primary:
         proposer_cls, core_cls = Proposer, Core
         extra: tuple = ()
         if fault_plan is not None and fault_plan.primary_behaviors():
-            for receiver in self.receivers:
-                await receiver.shutdown()
-            raise NotImplementedError(
-                "Byzantine primaries need faults/byzantine.py, which the "
-                "port does not have yet"
-            )
+            from ..faults.byzantine import ByzantineCore, ByzantineProposer
+
+            proposer_cls, core_cls = ByzantineProposer, ByzantineCore
+            extra = (fault_plan,)
         proposer = proposer_cls(
             *extra,
             name,

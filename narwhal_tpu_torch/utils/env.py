@@ -323,6 +323,19 @@ _VARS = [
         "batch window is enabled (bounds device batch shape and the "
         "latency added ahead of the first message's replay).",
     ),
+    # -- deterministic simulation (narwhal_tpu_torch/sim) ---------------------
+    EnvVar(
+        "NARWHAL_SIM_COMPRESSION_CAP", "float", 60.0,
+        "Ceiling on a single virtual-clock quiesce jump in simulated "
+        "seconds; a forgotten far-future timer advances the clock in "
+        "bounded non-blocking steps instead of one leap. 0 = uncapped.",
+    ),
+    EnvVar(
+        "NARWHAL_SIM_MAX_VIRTUAL_S", "float", 600.0,
+        "Ceiling on one sim run's total virtual duration, enforced as a "
+        "virtual-time wait_for: a livelocked scenario terminates with a "
+        "deterministic timeout instead of spinning forever.",
+    ),
     # -- fault injection ------------------------------------------------------
     EnvVar(
         "NARWHAL_FAULT_PLAN", "str", None,

@@ -221,10 +221,18 @@ class Worker:
         extra: tuple = ()
         flooder = None
         if fault_plan is not None and fault_plan.worker_behaviors():
-            raise NotImplementedError(
-                "Byzantine workers need faults/byzantine_worker.py, which "
-                "the port does not have yet"
+            from ..faults.byzantine_worker import (
+                ByzantineBatchMaker,
+                ByzantineHelper,
+                SyncFlooder,
             )
+
+            maker_cls, helper_cls = ByzantineBatchMaker, ByzantineHelper
+            extra = (fault_plan,)
+            if "sync_flood" in fault_plan.behaviors:
+                flooder = SyncFlooder(
+                    fault_plan, name, worker_id, committee, store
+                )
 
         # to_quorum keeps its QUORUM_WINDOW depth: its fullness IS the
         # admission backpressure (below queue_saturated's MIN_CAP floor

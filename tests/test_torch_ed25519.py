@@ -227,3 +227,36 @@ def test_cuda_backend_on_cpu_runs_off_the_event_loop():
         assert cb.verify(m, PublicKey(k), Signature(s))
     finally:
         cb.set_backend("cpu")
+
+
+def test_cancelled_caller_waits_for_the_burst_on_the_dispatch_thread():
+    """A caller cancelled while its burst runs on the dispatch thread
+    finishes cancelling only after the burst has ended, so a node's
+    shutdown (which awaits its cancelled tasks) never leaves a launch
+    counted and its timing not yet recorded."""
+    from narwhal_tpu_torch.crypto.keys import PublicKey, Signature
+
+    rows = hostile_vectors()[:2]
+    backend = TE.CudaBackend(device="cpu")
+    started, ended = threading.Event(), []
+
+    def slow(msgs, ks, ss):
+        started.set()
+        threading.Event().wait(0.3)
+        ended.append(1)
+        return [True] * len(msgs)
+
+    backend.verify_batch_mask = slow
+
+    async def go():
+        task = asyncio.ensure_future(backend.averify_batch_mask(
+            [m for m, _, _ in rows], [PublicKey(k) for _, k, _ in rows],
+            [Signature(s) for _, _, s in rows]))
+        while not started.is_set():
+            await asyncio.sleep(0.005)
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        return list(ended)
+
+    assert asyncio.run(go()) == [1]

@@ -4,8 +4,8 @@ against the JAX package's, on the CPU: every scenario file under
 an invalid spec raises the same ``SpecError`` text, and two emulators
 built from one seed and one set of shapes take the same per-frame delay
 and drop decisions and give the same ``blocked()`` answers.  Then the
-cases of ``tests/test_faults.py`` that drive these two modules run again
-on the port."""
+cases of ``tests/test_faults.py`` that drive these two modules and the
+health rules (``metrics.HealthMonitor``) run again on the port."""
 
 import asyncio
 import dataclasses
@@ -28,40 +28,47 @@ from tests.test_torch_tasks import mirror
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENARIOS = sorted(glob.glob(os.path.join(ROOT, "benchmark", "scenarios", "*.json")))
 
+# The cases of tests/test_faults.py that other port test files mirror.
+REPLAY_CASES = (
+    "test_replay_segment_roundtrip_clean_stream",
+    "test_replay_detects_reordered_and_forged_commits",
+    "test_replay_detects_double_commit_within_segment",
+    "test_audit_writer_rolls_instead_of_appending_to_old_segment",
+    "test_read_audit_tolerates_torn_tail",
+    "test_cross_node_prefix_accepts_lag_rejects_fork",
+)
+PLAN_CASES = (
+    "test_equivocate_requires_unit_stake_committee",
+    "test_byzantine_plan_roundtrip_and_split",
+)
+SOCKET_CASES = (
+    "test_shaped_writer_delays_frames_in_order",
+    "test_shaped_writer_loss_surfaces_as_connection_reset",
+    "test_partition_cuts_established_connection",
+)
+BENCH_CASES = (
+    "test_log_commit_fallback_counts_post_settle_lines",
+    "test_log_commit_fallback_incremental_state",
+)
+
 MIRRORED = mirror(
     globals(), "test_faults",
     skip=(
         # Real sockets shaped through netem: these fail on the reference
         # itself in this sandbox, so they are not copied.
-        "test_shaped_writer_delays_frames_in_order",
-        "test_shaped_writer_loss_surfaces_as_connection_reset",
-        "test_partition_cuts_established_connection",
-        # The health rules (metrics.HealthMonitor), the audit replay
-        # (consensus/replay.py), the Byzantine wrappers and the fault
-        # bench's log parsing are not in the port yet.
-        "test_equivocation_and_invalid_signature_rules_latch",
-        "test_peer_vote_silence_requires_round_progress",
-        "test_stale_replay_rule_fires_on_rate_not_trickle",
-        "test_new_rules_silent_on_clean_registry",
-        "test_replay_segment_roundtrip_clean_stream",
-        "test_replay_detects_reordered_and_forged_commits",
-        "test_replay_detects_double_commit_within_segment",
-        "test_audit_writer_rolls_instead_of_appending_to_old_segment",
-        "test_equivocate_requires_unit_stake_committee",
-        "test_read_audit_tolerates_torn_tail",
-        "test_cross_node_prefix_accepts_lag_rejects_fork",
-        "test_byzantine_plan_roundtrip_and_split",
-        "test_log_commit_fallback_counts_post_settle_lines",
-        "test_log_commit_fallback_incremental_state",
+        *SOCKET_CASES,
+        # The fault bench's log parsing (benchmark/fault_bench.py) runs
+        # no port code.
+        *BENCH_CASES,
+        # Mirrored in tests/test_torch_replay.py (the audit replay) and
+        # tests/test_torch_byzantine.py (the Byzantine plan).
+        *REPLAY_CASES, *PLAN_CASES,
     ),
-    keep=("narwhal_tpu.consensus.replay",
-          "from narwhal_tpu.metrics import HealthMonitor",
-          "tests.test_consensus"),
 )
 
 
 def test_mirror_covers_the_reference_cases():
-    assert len(MIRRORED) == 11
+    assert len(MIRRORED) == 15
     assert len(SCENARIOS) == 17
 
 

@@ -35,13 +35,10 @@ MIRRORED_NETWORK = mirror(globals(), "test_network")
 MIRRORED_CLOCKSYNC = mirror(
     globals(), "test_clocksync",
     # The harness-side joins (benchmark/metrics_check.py) run no port
-    # code; the sim (narwhal_tpu/sim) and the consensus test helpers
-    # (tests/test_consensus.py, over the golden oracles) are not ported.
+    # code.
     skip=("test_corrected_join_recovers_zero_skew_ground_truth",
           "test_critical_path_legs_telescope_to_e2e",
-          "test_quorum_straggler_summary_ranks_most_charged_first",
-          "test_support_quorum_charges_the_crossing_supporter_once",
-          "test_sim_skew_injection_recovered_and_bit_reproducible"),
+          "test_quorum_straggler_summary_ranks_most_charged_first"),
 )
 MIRRORED_LEDGER = mirror(
     globals(), "test_wire_ledger",
@@ -58,7 +55,7 @@ PKGS = {
 
 def test_mirrors_cover_the_reference_cases():
     assert len(MIRRORED_NETWORK) == 11
-    assert len(MIRRORED_CLOCKSYNC) == 6
+    assert len(MIRRORED_CLOCKSYNC) == 8
     assert len(MIRRORED_LEDGER) == 6
 
 

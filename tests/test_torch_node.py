@@ -151,12 +151,13 @@ def test_cli_committee_commits_client_transactions(tmp_path):
     assert checks["samples"] > 0 and checks["committed_batches"] > 0
     assert min(checks["committed_headers"]) > 0
     assert checks["replay_equal"] and min(checks["replayed_headers"]) > 0
-    for snap in run["snapshots"]:
+    assert sorted(run["snapshots"]) == [f"primary-{i}" for i in range(4)]
+    for snap in run["snapshots"].values():
         assert snap["counters"]["consensus.kernel.dispatches"] > 0
         assert snap["counters"]["consensus.committed_certificates"] > 0
     # Four primaries that agree on a wrong order still fail: each is
     # held to the plain Tusk over its own store.
-    swapped = [s[1::-1] + s[2:] for s in run["sequences"]]
+    swapped = {name: s[1::-1] + s[2:] for name, s in run["sequences"].items()}
     with pytest.raises(AssertionError, match="plain Tusk"):
         chip_smoke.node_checks(dict(run, sequences=swapped), min_leaders=2)
 
@@ -170,9 +171,11 @@ def test_node_checks_refuse_a_bad_run():
     good = dict(
         committee=c, codes={"primary-0": 0, "primary-1": 0},
         logs={"primary-0": "", "primary-1": ""},
-        sequences=[[(2, "h2"), (4, "h4")], [(2, "h2")]],
+        lives={0: ["primary-0"], 1: ["primary-1"]},
+        sequences={"primary-0": [(2, "h2"), (4, "h4")], "primary-1": [(2, "h2")]},
         origins={"h2": leader[2], "h4": leader[4]})
-    assert chip_smoke.committed_leaders(good["sequences"][0], good["origins"], c) == 2
+    assert chip_smoke.committed_leaders(
+        good["sequences"]["primary-0"], good["origins"], c) == 2
     for broken, match in (
         (dict(codes={"primary-0": 0, "primary-1": -15}), "exited non-zero"),
         (dict(logs={"primary-0": "x ERROR y", "primary-1": ""}), "ERROR"),
@@ -335,3 +338,12 @@ def test_primary_without_card_fails_at_boot(no_card, tmp_path):
     for name in ("cuda", "kernel"):
         log = procs.log(name)
         assert "no CUDA device" in log and chip_smoke.BOOTED not in log, log[-2000:]
+
+
+def test_verify_launch_timing_check_wants_every_launch_timed():
+    """The node phase holds each primary's verify launches to its
+    CUDA-event timings: equal, and never fewer timings than bursts."""
+    ok = chip_smoke.verify_launches_timed
+    assert ok(900, 900, 899) and ok(876, 876, 876)
+    assert not ok(877, 876, 876) and not ok(876, 877, 876)
+    assert not ok(876, 876, 877)

@@ -73,16 +73,23 @@ def port_source(src: str, keep=()) -> str:
     return src
 
 
-# Per reference module: the (subs, keep) its port copy is made with.
-_EDITS: dict = {}
+# ``tests._port_bench_<m>`` is the port copy of ``benchmark/<m>.py``: a
+# harness helper a reference test drives its package through (a planted
+# mutation, a pipeline run), pointed at the port the same way.
+BENCH = "bench_"
 
 
 class _PortModules(importlib.abc.MetaPathFinder, importlib.abc.Loader):
-    """Imports ``tests._port_<m>`` as the port copy of ``tests/<m>.py``,
-    so a mirrored module's own ``tests.*`` imports resolve to port copies
-    when (and only if) they run."""
+    """Imports ``tests._port_<m>`` as the port copy of ``tests/<m>.py``
+    (``tests._port_bench_<m>``: of ``benchmark/<m>.py``), so a mirrored
+    module's own ``tests.*`` imports resolve to port copies when (and
+    only if) they run."""
 
     PREFIX = "tests._port_"
+
+    def __init__(self) -> None:
+        # Per reference module: the (subs, keep) its port copy is made with.
+        self.edits: dict = {}
 
     def find_spec(self, fullname, path, target=None):
         if fullname.startswith(self.PREFIX):
@@ -94,8 +101,11 @@ class _PortModules(importlib.abc.MetaPathFinder, importlib.abc.Loader):
 
     def exec_module(self, module):
         ref = module.__name__[len(self.PREFIX):]
-        subs, keep = _EDITS.get(ref, ((), ()))
+        subs, keep = self.edits.get(ref, ((), ()))
         path = os.path.join(TESTS, ref + ".py")
+        if ref.startswith(BENCH):  # a harness module under benchmark/
+            path = os.path.join(os.path.dirname(TESTS), "benchmark",
+                                ref[len(BENCH):] + ".py")
         with open(path) as f:
             src = f.read()
         for old, new in subs:
@@ -105,23 +115,43 @@ class _PortModules(importlib.abc.MetaPathFinder, importlib.abc.Loader):
         exec(compile(port_source(src, keep), path, "exec"), module.__dict__)
 
 
-if not any(isinstance(f, _PortModules) for f in sys.meta_path):
-    sys.meta_path.insert(0, _PortModules())
+# One finder per process: this file is imported twice under pytest (as a
+# test module and as ``tests.test_torch_tasks``), and both copies must
+# register their edits with the finder that imports.
+_FINDER = next((f for f in sys.meta_path if type(f).__name__ == "_PortModules"), None)
+if _FINDER is None:
+    _FINDER = _PortModules()
+    sys.meta_path.insert(0, _FINDER)
+_EDITS = _FINDER.edits
 
 
-def mirror(namespace: dict, ref: str, skip=(), subs=(), keep=()) -> list:
+def port_benchmark(name: str, subs=()) -> str:
+    """Register the port copy of ``benchmark/<name>.py`` with the (old,
+    new) edits ``subs`` (each must match); returns the module name to
+    import it by, for a mirror's ``subs``."""
+    if subs:
+        _EDITS[BENCH + name] = (tuple(subs), ())
+    return _PortModules.PREFIX + BENCH + name
+
+
+def mirror(namespace: dict, ref: str, skip=(), subs=(), keep=(), only=None) -> list:
     """Put every test and fixture of the reference module ``ref``, run on
     the port, into the test module ``namespace``; ``skip`` names the
-    reference tests that are not mirrored (each must exist), ``subs`` are
-    (old, new) edits to the reference source (each must match) and
-    ``keep`` names stay the reference's.  Returns the mirrored test
-    names."""
+    reference tests that are not mirrored (each must exist), or ``only``
+    the ones that are (each must exist, as when a reference module's cases
+    are split over several port test files), ``subs`` are (old, new)
+    edits to the reference source (each must match) and ``keep`` names
+    stay the reference's.  Returns the mirrored test names."""
     from _pytest.fixtures import getfixturemarker
 
     if subs or keep:
         _EDITS[ref] = (tuple(subs), tuple(keep))
     mod = importlib.import_module(_PortModules.PREFIX + ref)
     tests = [k for k in vars(mod) if k.startswith("test_")]
+    if only is not None:
+        missing = set(only) - set(tests)
+        assert not missing, f"{ref}: no such tests {sorted(missing)}"
+        skip = [k for k in tests if k not in only]
     missing = set(skip) - set(tests)
     assert not missing, f"{ref}: no such tests {sorted(missing)}"
     names = []
