@@ -50,7 +50,14 @@ it and read just after, and then the node CLI in processes of its own:
   prefix, the wrong-key headers must be rejected by the card's verifier
   and the equivocation detected, authority 6 must restore its consensus
   frontier on the card and commit again, and the ``invalid_signature``,
-  ``equivocation`` and ``peer_unreachable`` rules must fire.
+  ``equivocation`` and ``peer_unreachable`` rules must fire;
+- ``multichip``: the committee-sharded commit step
+  (``narwhal_tpu_torch.commit_step.dryrun_multichip``): four gloo rank
+  processes sharing the card, each holding a block of the window's
+  columns, at W=16/N=16, the flagship W=64/N=50 and W=8/N=1024, then an
+  NCCL world of one rank a visible card; every rank's result must equal
+  ``commit_step_fused`` on the whole window, and both block kernels must
+  launch in every rank.
 
 One JSON line per phase; the line before the last is the card's name and
 power limit as nvidia-smi reports them, and the last line is
@@ -784,6 +791,10 @@ def phase_kernels(dag, keys, device, rng):
                 100, prefill=True),
         ),
     )
+
+    # -- the committee-sharded step's two block kernels, every rank's block
+    #    at every slot of the multichip phase's cases
+    records.update(block_records(device))
 
     # -- the verifier's batch split (the reference's NARWHAL_VERIFY_MESH
     #    path) against the single launch, on the same B = 2048 rows
@@ -1559,8 +1570,9 @@ def phase_main_path(keys, committee, signed, rng):
     assert got_digests == want_digests, "kernel commit sequence != Python Tusk"
     assert tusk.python_fallbacks == 0, tusk.python_fallbacks
     # The node's path launches the verifier and the window's update and
-    # scan; the flagship step's launch belongs to the commit_step phase.
-    off_path = check.KERNELS + ("commit_step",)
+    # scan; the flagship step's launch belongs to the commit_step phase,
+    # the sharded step's block kernels to the multichip phase.
+    off_path = check.KERNELS + ("commit_step",) + MULTICHIP_KERNELS
     assert all(launches.get(name, 0) == 0 for name in off_path), launches
     assert all(n > 0 for name, n in launches.items() if name not in off_path), launches
     assert all(n > 0 for n in check.launches.values()), check.launches
@@ -2201,6 +2213,12 @@ def payload_commits_after(log: str, at: float, above: int = 0) -> int:
     return n
 
 
+def primary_store_log(workdir: str, i: int) -> str:
+    """The log file of primary ``i``'s store, as ``node run --store`` lays
+    it out."""
+    return os.path.join(workdir, f"db-primary-{i}/store.log")
+
+
 def store_head(store_path: str, committee) -> int:
     """The highest round of a certificate in a primary's store (0: none)."""
     return max((c.round for c in stored_certificates(store_path, committee)),
@@ -2335,8 +2353,7 @@ def run_node_committee(workdir: str, n: int, base_port: int, rate: int,
                 # The head of the store the next life restores from, read
                 # from a copy: opening a store cuts its torn tail.
                 copy = os.path.join(workdir, f"crash-{primary}.store.log")
-                shutil.copyfile(
-                    os.path.join(workdir, f"db-primary-{i}", "store.log"), copy)
+                shutil.copyfile(primary_store_log(workdir, i), copy)
                 out["crash_heads"][i] = store_head(copy, committee)
             else:
                 start(procs, i)
@@ -2379,8 +2396,7 @@ def run_node_committee(workdir: str, n: int, base_port: int, rate: int,
             out["restart_boot_s"][i] = (
                 _log_local_time(booted[0]) - (t_load + at) if booted else None)
     out["certificates"] = [
-        stored_certificates(
-            os.path.join(workdir, f"db-primary-{i}", "store.log"), committee)
+        stored_certificates(primary_store_log(workdir, i), committee)
         for i in range(n)]
     # {header as the log prints it: its author}
     out["origins"] = {repr(c.header.id): c.origin
@@ -2819,6 +2835,190 @@ def phase_faults():
     return result
 
 
+# -- the committee-sharded commit step ----------------------------------------
+# Four ranks at the reference's dry-run shape (seed 1, W=16, N=16), at the
+# flagship's (seed 0, W=64, N=50: 13 columns a block, the last padded) and
+# at the kernels' largest (W=8, N=1024); an anchor of None is the
+# fixture's.
+MULTICHIP_RANKS = 4
+MULTICHIP_CASES = ((1, 16, 16, None), (0, 64, 50, None), (2, 8, 1024, None))
+MULTICHIP_KERNELS = ("chain_step_block", "support_votes_block")
+MULTICHIP_STEPS = 5  # timed sharded steps a rank runs after the checked one
+MULTICHIP_TIMEOUT_S = 300.0
+
+
+def bits(t) -> str:
+    import numpy as np
+
+    return np.packbits(t.cpu().numpy().reshape(-1)).tobytes().hex()
+
+
+def whole_fixture(case, device) -> list:
+    """A multichip case's :func:`~narwhal_tpu_torch.commit_step.commit_fixture`
+    as tensors on ``device``, the anchor slot an int."""
+    import numpy as np
+    import torch
+
+    from narwhal_tpu_torch.commit_step import commit_fixture
+
+    seed, window, n, anchor = case
+    fixture = [a if isinstance(a, int) else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for a in commit_fixture(seed, window, n)]
+    if anchor is not None:
+        fixture[5] = anchor
+    return fixture
+
+
+def block_records(device) -> dict:
+    """``nt_chain_step_block`` and ``nt_support_votes_block`` against their
+    plain twins on the card, tolerance 0: at each of MULTICHIP_CASES over
+    MULTICHIP_RANKS ranks, every rank's block at every slot below the
+    anchor, the record of the slot above taken from the whole window's
+    fused commit step (whose slice the block step must also equal), and
+    every rank's block of the gate's votes.  Times at the flagship's
+    shape, rank 0's block at the slot below the anchor."""
+    import torch
+
+    from narwhal_tpu_torch.commit_step import commit_fixture, shard_commit_args
+    from narwhal_tpu_torch.ops import LAUNCHES, reachability as R
+
+    k = MULTICHIP_RANKS
+    before = dict(LAUNCHES)
+    chain, votes = Mismatch(), Mismatch()
+    slice_mism = 0
+    shapes, timed = [], {}
+    for case in MULTICHIP_CASES:
+        fixture = whole_fixture(case, device)
+        _, W, N, _ = case
+        _, _, leader, is_lead, _, anchor, _ = fixture
+        _, _, reach = R.commit_step_fused(*fixture)
+        nb = -(-N // k)
+        blocks = [shard_commit_args(r, k, commit_fixture(*case[:3]), device)
+                  for r in range(k)]
+
+        def padded(t):
+            out = torch.zeros(k * nb, dtype=torch.bool, device=device)
+            out[:N] = t
+            return out.view(k, nb)
+
+        rows = []
+        for w in range(anchor - 1, -1, -1):
+            g_up, gl_up = padded(reach[w + 1]), padded(reach[w + 1] & leader[w + 1])
+            if w + 1 == anchor:
+                gl_up.zero_()  # the anchor's slot does not reset the chain
+            prev = torch.stack((g_up, gl_up), 1).contiguous()
+            lead = is_lead[w + 1]
+            front = gl_up if bool(lead) and bool(gl_up.any()) else g_up
+            rows.append(int(front.sum()))
+            scan = torch.stack((padded(reach[w]), padded(reach[w] & leader[w])), 1)
+            for r, blk in enumerate(blocks):
+                args = (blk[0][w + 1], blk[1][w], blk[2][w], prev, lead)
+                got = R.chain_step_block(*args)
+                chain.add((got,), (R.chain_step_block_plain(*args),))
+                slice_mism += diff(got, scan[r])[0]
+                if N == N_COMMITTEE and r == 0 and w == anchor - 1:
+                    timed["chain"] = (args, rows[-1] * nb + 2 * k * nb + 2 * nb + 1
+                                      + 2 * nb)
+        s, row = R._support_slot(anchor - 2, W), R._leader_row(anchor, W)
+        for r, blk in enumerate(blocks):
+            args = (blk[0][s], blk[2][row])
+            votes.add((R.support_votes_block(*args),), (R.support_votes_block_plain(*args),))
+            if N == N_COMMITTEE and r == 0:
+                timed["votes"] = (args, N * nb + nb + N)
+        shapes.append(dict(window=W, committee=N, ranks=k, block_cols=nb, slots=anchor,
+                           frontier_rows_mean=sum(rows) / max(1, len(rows))))
+
+    def record(name, replaces, mism, fn, plain, args, nbytes, **extra):
+        return dict(
+            replaces=replaces, source="narwhal_tpu_torch/csrc/reachability.cu",
+            mismatches=mism.count + extra.get("scan_slice_mismatches", 0),
+            max_abs_err=mism.err, check_launches=LAUNCHES[name] - before[name],
+            ms=cuda_ms(lambda: fn(*args), 100, prefill=True),
+            host_ms_per_call=host_ms(lambda: fn(*args), 100),
+            plain_ms=cuda_ms(lambda: plain(*args), 20), library_ms=None,
+            bound_ms=1000 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+            extra=dict(shapes=shapes, block_bytes_w64_n50=nbytes, **extra))
+
+    # Bytes: for the chain step the frontier's rows of the block, the
+    # gathered record of the slot above, exists, the leader and the flag
+    # read once, the two output rows written once; for the votes the child
+    # slot's block and the leader's row read once, the votes written once.
+    graft = "__graft_entry__.py:147 (jax.jit of make_commit_step over a committee mesh: "
+    return {
+        "chain_step_block": record(
+            "chain_step_block", graft + "GSPMD's column-sharded _chain_scan step, "
+            "narwhal_tpu/ops/reachability.py:88)", chain, R.chain_step_block,
+            R.chain_step_block_plain, *timed["chain"], scan_slice_mismatches=slice_mism),
+        "support_votes_block": record(
+            "support_votes_block", graft + "GSPMD's column-sharded support_stake "
+            "votes, narwhal_tpu/ops/reachability.py:267)", votes, R.support_votes_block,
+            R.support_votes_block_plain, *timed["votes"]),
+    }
+
+
+def phase_multichip():
+    """The committee-sharded commit step
+    (``narwhal_tpu_torch.commit_step.dryrun_multichip``): MULTICHIP_RANKS
+    gloo ranks sharing the card, one process each, at MULTICHIP_CASES,
+    then an NCCL world of one rank a visible card at the reference's
+    shape.  Each rank resets the launch counts just before its checked
+    step and reads them just after, checks its result (rank 0 against the
+    whole window), then times MULTICHIP_STEPS steps.  Here every rank's
+    result is held to ``commit_step_fused`` on the whole window, tolerance
+    0, and both block kernels must have launched in every rank."""
+    import torch
+
+    from narwhal_tpu_torch.commit_step import dryrun_multichip
+    from narwhal_tpu_torch.ops import reachability as R
+
+    device = torch.device("cuda", 0)
+    cards = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    mism, launches, cases, worlds = 0, dict.fromkeys(MULTICHIP_KERNELS, 0), [], []
+    for backend, ranks, world_cases in (
+            ("gloo", MULTICHIP_RANKS, MULTICHIP_CASES),
+            ("nccl", cards, ((1, 16, 4 * cards, None),))):
+        t0 = time.perf_counter()
+        records = dryrun_multichip(ranks, backend=backend, cases=world_cases,
+                                   steps=MULTICHIP_STEPS, timeout=MULTICHIP_TIMEOUT_S)
+        worlds.append(dict(backend=backend, ranks=ranks, seconds=time.perf_counter() - t0))
+        for i, case in enumerate(world_cases):
+            support, committed, reach = R.commit_step_fused(*whole_fixture(case, device))
+            want = (int(support), bits(committed), bits(reach))
+            per_rank = []
+            for rank_records in records:
+                rec = rank_records[i]
+                mism += (rec["support"], rec["committed_bits"], rec["reach_bits"]) != want
+                step = {name: rec["launches"].get(name, 0) for name in MULTICHIP_KERNELS}
+                assert all(step.values()), (backend, case, rec["rank"], rec["launches"])
+                for name in MULTICHIP_KERNELS:
+                    launches[name] += step[name]
+                per_rank.append(dict(
+                    rank=rec["rank"], device=rec["device"], backend=rec["backend"],
+                    launches_per_step=step, block_step_ms=rec["block_step_ms"],
+                    step_wall_ms=rec["step_wall_ms"], first_step_ms=rec["first_step_ms"]))
+            _, W, N, _ = case
+            nb = -(-N // ranks)
+            cases.append(dict(
+                backend=backend, ranks=ranks, seed=case[0], window=W, committee=N,
+                anchor_slot=records[0][i]["anchor_slot"], block_cols=nb,
+                support=want[0], committed=int(committed.sum()),
+                reach_cells=int(reach.sum()),
+                # A rank's parent block, read once, over the card's memory rate.
+                parent_block_bytes=W * N * nb,
+                bound_ms=1000 * W * N * nb / HBM_BYTES_PER_S, per_rank=per_rank))
+    assert mism == 0, f"sharded steps != commit_step_fused: {mism} rank results"
+    flagship = [c for c in cases if (c["window"], c["committee"]) == (64, N_COMMITTEE)]
+    assert [(c["support"], c["committed"], c["reach_cells"]) for c in flagship] == [
+        (28, 26, 2477)], flagship
+    result = dict(
+        phase="multichip", cards=cards, worlds=worlds, cases=cases, mismatches=mism,
+        tolerance=0, launches=launches, seconds=time.perf_counter() - t_phase,
+        nvidia_smi=nvidia_smi_line())
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "narwhal_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -2876,6 +3076,7 @@ def main() -> int:
     committee_run = phase_committee()
     node_run = phase_node()
     faults_run = phase_faults()
+    multichip_run = phase_multichip()
 
     # Each kernel's launches on the path that carries it: the flagship
     # commit step for its one launch, the main path's live-window check
@@ -2883,6 +3084,8 @@ def main() -> int:
     # others.
     paths = {name: ("main_path", main["launches"]) for name in records}
     paths.update(commit_step=("commit_step", step["launches"]),
+                 **{name: ("multichip", multichip_run["launches"])
+                    for name in MULTICHIP_KERNELS},
                  **{name: ("main_path_live_check", main["live_check_launches"])
                     for name in ("support_stake", "leader_chain_scan",
                                  "causal_mask_scan")})
@@ -2932,7 +3135,8 @@ def main() -> int:
             if name == "support_stake" else {}),
          **({k: r["extra"][k] for k in ("launch_w64_n50", "registers_by_n",
                                         "ms_two_launches", "ms_chain_scan_alone")}
-            if name == "commit_step" else {})}
+            if name == "commit_step" else {}),
+         **({"shapes": r["extra"]["shapes"]} if name in MULTICHIP_KERNELS else {})}
         for name, r in records.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

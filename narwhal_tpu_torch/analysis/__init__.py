@@ -12,5 +12,4 @@ Kept import-light (stdlib + narwhal_tpu.utils.env only): the lint CI job
 runs without jax.
 """
 
-# The linter (linter.py, rules.py) is not ported yet: this package holds
-# only the loop-stall watchdog.
+from .linter import Finding, load_project, run_lint  # noqa: F401

@@ -13,6 +13,12 @@
 //                              one program (__graft_entry__.make_commit_step):
 //                              the chain scan's launch, with the support
 //                              gate on its idle blocks
+//   chain_step_block,       <- the same program under jax.jit over a
+//   support_votes_block        `committee` mesh (__graft_entry__.py:147-193),
+//                              which GSPMD partitions on the cited parent's
+//                              column: one descending slot of _chain_scan, and
+//                              the support gate's per-child votes, on one
+//                              rank's block of columns
 //
 // The commit path's window is int32 presence COUNTS: exists[W][N] and
 // parent[W][N][N], where parent[w][n][m] != 0 means certificate (w, n)
@@ -370,6 +376,83 @@ __global__ void __launch_bounds__(32 * kGateBlockWarps)
   }
 }
 
+// The committee-sharded commit step.  Rank r of k holds the columns
+// [r * Nb, (r + 1) * Nb) of the window's cited-parent axis (Nb =
+// ceil(N / k), the last block padded with columns that do not exist), and
+// every slot's step needs the whole frontier, so the ranks all-gather each
+// step's (g, g & leader) blocks (ops/reachability.py, commit_step_sharded).
+//
+// chain_step_block: one descending slot w on a rank's columns.  The block
+// first rebuilds the frontier from the gathered record of slot w + 1,
+// prev[k][2][Nb]: its g & leader where that slot is a leader slot and any
+// of those bits is set (the chain's reset to the leader), else its g; it
+// lists the frontier's rows in shared memory.  Then one thread a column
+// ORs the listed rows of parent[w + 1] in that column (a warp's 32 loads of
+// one row are neighbours) and ANDs exists and the leader.  What bounds it
+// on the card: the bytes of the frontier's rows in the rank's columns,
+// |frontier| * Nb, at most 50 * 13 bytes at the flagship's N = 50 over four
+// ranks, so one launch costs its latency; the design keeps it to one
+// launch a slot with no host work between (the frontier's rebuild is
+// inside it), which is what lets a step's W launches and gathers be
+// enqueued whole.
+constexpr int kBlockStepThreads = 128;
+
+struct BlockStepArgs {
+  const uint8_t* parent_up;  // [N][Nb]: parent[w + 1] on the rank's columns
+  const uint8_t* exists;     // [Nb]: exists[w] on the rank's columns
+  const uint8_t* leader;     // [Nb]: leader_onehot[w] on the rank's columns
+  const uint8_t* prev;       // [k][2][Nb]: every rank's (g, g & leader) at w + 1
+  const uint8_t* prev_lead;  // is_leader_slot[w + 1]
+  uint8_t* out;              // [2][Nb]: this rank's (g, g & leader) at w
+  int N, Nb;
+};
+
+__global__ void __launch_bounds__(kBlockStepThreads)
+    chain_step_block_kernel(BlockStepArgs a) {
+  __shared__ int rows[1024];
+  __shared__ int count;
+  const int t = (int)threadIdx.x;
+  if (t == 0) count = 0;
+  // Gathered element i of a half (0: g, 1: g & leader) of slot w + 1.
+  auto at = [&](int i, int half) {
+    const int r = i / a.Nb;
+    return a.prev[(2 * r + half) * a.Nb + (i - r * a.Nb)];
+  };
+  int any = 0;
+  for (int i = t; i < a.N; i += kBlockStepThreads) any |= at(i, 1);
+  const int half = __syncthreads_or(any) && *a.prev_lead ? 1 : 0;
+  for (int i = t; i < a.N; i += kBlockStepThreads)
+    if (at(i, half)) rows[atomicAdd(&count, 1)] = i;
+  __syncthreads();
+  const int j = (int)blockIdx.x * kBlockStepThreads + t;
+  if (j >= a.Nb) return;
+  uint8_t hit = 0;
+  for (int q = 0; q < count && !hit; ++q) hit = a.parent_up[rows[q] * a.Nb + j];
+  const uint8_t g = hit & a.exists[j];
+  a.out[j] = g;
+  a.out[a.Nb + j] = g & a.leader[j];
+}
+
+// support_votes_block: the f+1 gate's votes on a rank's columns,
+// votes[i] = OR over the rank's columns j of parent_s[i][j] & leader[j],
+// one warp a child row (its lanes' loads are neighbours), for the ranks
+// to OR together.  Bound by its N * Nb bytes, a launch's latency at the
+// main path's shapes.
+constexpr int kVotesWarps = 8;
+
+__global__ void __launch_bounds__(32 * kVotesWarps)
+    support_votes_block_kernel(const uint8_t* __restrict__ parent_s,
+                               const uint8_t* __restrict__ leader,
+                               uint8_t* __restrict__ votes, int N, int Nb) {
+  const int lane = (int)(threadIdx.x & 31);
+  const int i = (int)blockIdx.x * kVotesWarps + (int)(threadIdx.x >> 5);
+  if (i >= N) return;
+  int v = 0;
+  for (int j = lane; j < Nb; j += 32) v |= parent_s[i * Nb + j] & leader[j];
+  v = __any_sync(0xffffffffu, v);
+  if (lane == 0) votes[i] = (uint8_t)v;
+}
+
 }  // namespace
 
 extern "C" int nt_window_update(void* exists, void* parent, const void* ins_w,
@@ -636,4 +719,34 @@ extern "C" int nt_support_stake_attributes(int N, int* out) {
   ntw::GateArgs a{};
   a.N = N;
   return launch_support(a, 1, nullptr, nullptr, out);
+}
+
+// One descending slot of the committee-sharded chain on a rank's Nb
+// columns of N (k ranks, k * Nb >= N): `out` [2][Nb] gets g and g & leader
+// from the gathered record `prev` [k][2][Nb] of the slot above (see
+// chain_step_block_kernel).
+extern "C" int nt_chain_step_block(const void* parent_up, const void* exists,
+                                   const void* leader, const void* prev,
+                                   const void* prev_lead, void* out, int N, int Nb,
+                                   int k, void* stream) {
+  if (N < 1 || N > 1024 || Nb < 1 || k < 1 || (int64_t)k * Nb < N)
+    return (int)cudaErrorInvalidValue;
+  const BlockStepArgs a{(const uint8_t*)parent_up, (const uint8_t*)exists,
+                        (const uint8_t*)leader,    (const uint8_t*)prev,
+                        (const uint8_t*)prev_lead, (uint8_t*)out,
+                        N,                         Nb};
+  chain_step_block_kernel<<<(Nb + kBlockStepThreads - 1) / kBlockStepThreads,
+                            kBlockStepThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The support gate's votes on a rank's Nb columns: votes [N] from the
+// child slot's parent rows parent_s [N][Nb] and the leader's row [Nb].
+extern "C" int nt_support_votes_block(const void* parent_s, const void* leader,
+                                      void* votes, int N, int Nb, void* stream) {
+  if (N < 1 || N > 1024 || Nb < 1 || Nb > 1024) return (int)cudaErrorInvalidValue;
+  support_votes_block_kernel<<<(N + kVotesWarps - 1) / kVotesWarps, 32 * kVotesWarps, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint8_t*)parent_s, (const uint8_t*)leader, (uint8_t*)votes, N, Nb);
+  return (int)cudaGetLastError();
 }

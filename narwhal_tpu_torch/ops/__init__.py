@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "causal_mask_scan": 0,
     "support_stake": 0,
     "commit_step": 0,
+    "chain_step_block": 0,
+    "support_votes_block": 0,
 }
 
 

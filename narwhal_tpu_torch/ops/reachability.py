@@ -1,4 +1,4 @@
-"""Tusk's DAG window on the card: six hand-written CUDA kernels.
+"""Tusk's DAG window on the card: eight hand-written CUDA kernels.
 
 The port of ``narwhal_tpu/ops/reachability.py``.  The commit path's
 window is a pair of int32 presence-COUNT tensors that live on ``device``
@@ -30,6 +30,14 @@ Four more take the window as bools, as the JAX programs do:
   ``narwhal_tpu_torch/commit_step.py`` (the JAX ``support_stake`` and
   ``leader_chain_scan`` traced as one program) in one launch: the chain
   scan's, with the support gate run beside the scan.
+
+Two more run the same commit step with the committee's columns split
+over the ranks of a process group, as ``jax.jit`` of the step runs it
+over a ``committee`` mesh (:func:`commit_step_sharded`):
+:func:`chain_step_block`, one slot of the chain on a rank's block of
+columns, and :func:`support_votes_block`, the gate's votes on it; the
+ranks all-gather each slot's blocks and reduce the gate's votes and
+stake with ``torch.distributed``.
 
 Where the JAX programs donate their buffers, the port updates the
 window tensors in place.  Each wrapper launches its kernel for a CUDA
@@ -500,6 +508,143 @@ def commit_step_fused(parent, exists, leader_onehot, is_leader_slot, stake,
             ctypes.c_void_p(stream_handle(dev)))
     check_launch("commit_step", rc)
     return support, committed, reach
+
+
+# ------------------------------------------------------- the sharded commit step
+
+
+def _frontier(prev, prev_lead, n: int):
+    """The frontier a block step reads, bool[n]: from ``prev`` bool[k, 2,
+    Nb], every rank's (g, g & leader) blocks at the slot above, its
+    g & leader where ``prev_lead`` (that slot's ``is_leader_slot``, bool
+    0-d) holds and any of those bits is set, else its g."""
+    g, gl = (prev[:, h].reshape(-1)[:n] for h in (0, 1))
+    return torch.where(prev_lead & gl.any(), gl, g)
+
+
+def chain_step_block_plain(parent_up_blk, exists_blk, leader_blk, prev, prev_lead,
+                           *, out=None):
+    """Plain twin of :func:`chain_step_block`."""
+    frontier = _frontier(prev, prev_lead, parent_up_blk.shape[0])
+    g = (frontier[:, None] & parent_up_blk).any(dim=0) & exists_blk
+    res = torch.stack((g, g & leader_blk))
+    return res if out is None else out.copy_(res)
+
+
+def chain_step_block(parent_up_blk, exists_blk, leader_blk, prev, prev_lead, *,
+                     out=None):
+    """One descending slot w of the linked-leader chain on one rank's block
+    of Nb columns (cited parents) of N, in one launch: from the slot
+    above's gathered record ``prev`` bool[k, 2, Nb] and its
+    ``is_leader_slot`` ``prev_lead`` (bool 0-d) the frontier (see
+    :func:`_frontier`), then g = (frontier · ``parent_up_blk``
+    bool[N, Nb], parent[w + 1]'s columns) & ``exists_blk`` bool[Nb].
+    Returns bool[2, Nb], (g_blk, g_blk & ``leader_blk``), in ``out`` when
+    given: this rank's part of slot w's record."""
+    if exists_blk.device.type == "cpu":
+        return chain_step_block_plain(parent_up_blk, exists_blk, leader_blk, prev,
+                                      prev_lead, out=out)
+    N, Nb = parent_up_blk.shape
+    k = prev.shape[0]
+    if N > 1024 or k * Nb < N:
+        raise ValueError(f"chain_step_block: N={N} in {k} blocks of {Nb}")
+    dev = resolve_device(exists_blk.device)
+    require(parent_up_blk, torch.bool, (N, Nb), dev, "chain_step_block parent_up_blk")
+    require(exists_blk, torch.bool, (Nb,), dev, "chain_step_block exists_blk")
+    require(leader_blk, torch.bool, (Nb,), dev, "chain_step_block leader_blk")
+    require(prev, torch.bool, (k, 2, Nb), dev, "chain_step_block prev")
+    require(prev_lead, torch.bool, (), dev, "chain_step_block prev_lead")
+    if out is None:
+        out = torch.empty((2, Nb), dtype=torch.bool, device=dev)
+    require(out, torch.bool, (2, Nb), dev, "chain_step_block out")
+    fn = kernel_fn("nt_chain_step_block", _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP)
+    rc = fn(ptr(parent_up_blk), ptr(exists_blk), ptr(leader_blk), ptr(prev),
+            ptr(prev_lead), ptr(out), N, Nb, k, _VP(stream_handle(dev)))
+    check_launch("chain_step_block", rc)
+    return out
+
+
+def support_votes_block_plain(parent_s_blk, leader_blk):
+    """Plain twin of :func:`support_votes_block`."""
+    return (parent_s_blk & leader_blk[None, :]).any(dim=1)
+
+
+def support_votes_block(parent_s_blk, leader_blk):
+    """The f+1 gate's votes on one rank's block of columns, in one launch:
+    votes[i] = OR over the block's columns j of ``parent_s_blk`` bool[N,
+    Nb] (the child slot's parent rows) [i, j] & ``leader_blk`` bool[Nb]
+    [j].  Returns bool[N]; the ranks' votes OR together."""
+    if leader_blk.device.type == "cpu":
+        return support_votes_block_plain(parent_s_blk, leader_blk)
+    N, Nb = parent_s_blk.shape
+    if N > 1024 or Nb > 1024:
+        raise ValueError(f"support_votes_block: N={N}, Nb={Nb} > 1024")
+    dev = resolve_device(leader_blk.device)
+    require(parent_s_blk, torch.bool, (N, Nb), dev, "support_votes_block parent_s_blk")
+    require(leader_blk, torch.bool, (Nb,), dev, "support_votes_block leader_blk")
+    votes = torch.empty(N, dtype=torch.bool, device=dev)
+    fn = kernel_fn("nt_support_votes_block", _VP, _VP, _VP, _I, _I, _VP)
+    rc = fn(ptr(parent_s_blk), ptr(leader_blk), ptr(votes), N, Nb,
+            _VP(stream_handle(dev)))
+    check_launch("support_votes_block", rc)
+    return votes
+
+
+def commit_step_sharded(group, parent_blk, exists_blk, leader_blk, is_leader_slot,
+                        stake_blk, anchor_slot: int, anchor_onehot, *, n: int):
+    """The flagship commit step with the committee's columns split over the
+    k ranks of the process group ``group`` (None: the default group), as
+    ``jax.jit`` of ``__graft_entry__.make_commit_step`` runs it over a
+    ``committee`` mesh.  Rank r holds the columns [r·Nb, (r+1)·Nb) of the
+    cited-parent axis, Nb = ceil(n / k), the last block padded with
+    columns that do not exist and hold no stake: ``parent_blk`` bool[W,
+    n, Nb], ``exists_blk`` and ``leader_blk`` bool[W, Nb], ``stake_blk``
+    int32[Nb]; ``is_leader_slot`` bool[W] and ``anchor_onehot`` bool[n] are
+    whole on every rank.  No rank holds the whole window.
+
+    Returns (support 0-d int32, committed bool[W], reach bool[W, n]), the
+    same on every rank and equal to :func:`commit_step_fused` on the whole
+    window.  The gate is one :func:`support_votes_block` launch, an
+    OR-reduce of its votes and a sum-reduce of the stake of this rank's
+    voters; the chain is, for each slot below the anchor (the frontier is
+    empty above it, and is the anchor at it), one :func:`chain_step_block`
+    launch and one all-gather of its (g, g & leader) blocks, after which
+    every rank holds the whole frontier.  Nothing waits on the host inside
+    the slot loop, so a step on NCCL is enqueued whole."""
+    import torch.distributed as dist
+
+    dev = resolve_device(parent_blk.device)
+    k, rank = dist.get_world_size(group), dist.get_rank(group)
+    W, N, Nb = parent_blk.shape
+    if N != n or Nb != -(-n // k):
+        raise ValueError(f"commit_step_sharded: parent block {tuple(parent_blk.shape)} "
+                         f"is not n={n} over {k} ranks")
+    lo = rank * Nb
+    own = max(0, min(n - lo, Nb))  # this rank's columns that exist
+    # The f+1 gate: the child slot and the leader's row resolved as JAX
+    # resolves a traced index.
+    s, row = _support_slot(anchor_slot - 2, W), _leader_row(anchor_slot, W)
+    votes = support_votes_block(parent_blk[s], leader_blk[row])
+    dist.all_reduce(votes.view(torch.uint8), op=dist.ReduceOp.MAX, group=group)
+    mine = votes[lo : lo + own] & exists_blk[s, :own]
+    support = torch.where(mine, stake_blk[:own], 0).sum(dtype=torch.int32).reshape(1)
+    dist.all_reduce(support, group=group)
+    # The chain: rec[w] is slot w's gathered (g, g & leader), rank by rank.
+    rec = torch.zeros((W, k, 2, Nb), dtype=torch.bool, device=dev)
+    if 0 <= anchor_slot < W:
+        anchor = torch.zeros(k * Nb, dtype=torch.bool, device=dev)
+        anchor[:n] = anchor_onehot
+        rec[anchor_slot, :, 0] = anchor.view(k, Nb)
+        send = torch.empty((W, 2, Nb), dtype=torch.bool, device=dev)
+        for w in range(anchor_slot - 1, -1, -1):
+            chain_step_block(parent_blk[w + 1], exists_blk[w], leader_blk[w], rec[w + 1],
+                             is_leader_slot[w + 1], out=send[w])
+            dist.all_gather(list(rec[w].view(torch.uint8).unbind(0)),
+                            send[w].view(torch.uint8), group=group)
+    g, gl = (rec[:, :, h].reshape(W, k * Nb)[:, :n] for h in (0, 1))
+    below = torch.arange(W, device=dev) < anchor_slot
+    committed = is_leader_slot & below & gl.any(dim=1)
+    return support.reshape(()), committed, g.contiguous()
 
 
 # -------------------------------------------------------------------- KernelTusk

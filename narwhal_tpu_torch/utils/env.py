@@ -4,8 +4,18 @@ Every env knob the port reads is DECLARED here — name, type, documented
 default, one doc line — and read through the typed accessors below; an
 undeclared name raises at the read.  The port declares only the knobs
 its own modules read: the reference's registry
-(``narwhal_tpu/utils/env.py``) holds the rest, and each comes across
-with the slice that first reads it.
+(``narwhal_tpu/utils/env.py``) holds the rest.  Two consumers keep the
+registry honest:
+
+- the port's invariant linter (``python -m narwhal_tpu_torch.analysis``):
+  any ``NARWHAL_*`` literal in the port that is not declared here fails
+  the ``env-var-registry`` rule, as does a direct ``os.environ`` read
+  outside this module and a declared entry nothing reads;
+- the port's README table is generated from this registry
+  (``python -m narwhal_tpu_torch.analysis --env-table``) and
+  drift-checked by the same lint run.
+
+Stdlib only: the linter executes this file to render the table.
 
 Parsing behavior shared by every accessor: accept a valid override, fall
 back LOUDLY on garbage, and warn once per (name, raw value) rather than
@@ -37,6 +47,14 @@ class EnvVar:
     kind: str  # "flag" | "int" | "float" | "str"
     default: object
     doc: str
+
+    @property
+    def rendered_default(self) -> str:
+        if self.default is None:
+            return "unset"
+        if self.kind == "flag":
+            return "1" if self.default else "0"
+        return str(self.default)
 
 
 _VARS = [
@@ -436,7 +454,6 @@ def env_int(
     return _parse_number(name, raw, int, d)
 
 
-
 def env_float(
     name: str,
     default: object = _UNSET,
@@ -473,3 +490,29 @@ def positive_int(name: str, default: int) -> int:
     if raw is None:
         return default
     return _parse_positive_int(name, raw, default)
+
+
+# -- README table -------------------------------------------------------------
+
+# The port's own markers: the reference's table lives in the same README
+# between its own pair, and neither pair contains the other.
+TABLE_BEGIN = (
+    "<!-- torch-env-table:begin (generated: "
+    "python -m narwhal_tpu_torch.analysis --env-table) -->"
+)
+TABLE_END = "<!-- torch-env-table:end -->"
+
+
+def render_table() -> str:
+    """The port's README env-var markdown table, generated from the
+    registry so the doc and the code cannot drift (the linter compares
+    this output against the README section)."""
+    lines = [
+        "| Variable | Type | Default | Meaning |",
+        "|---|---|---|---|",
+    ]
+    for v in sorted(REGISTRY.values(), key=lambda v: v.name):
+        lines.append(
+            f"| `{v.name}` | {v.kind} | {v.rendered_default} | {v.doc} |"
+        )
+    return "\n".join(lines)

@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -60,7 +61,7 @@ print("COUNT", sum(n.startswith("narwhal_tpu_torch") for n in sys.modules))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     count = int(out.stdout.split("COUNT")[1].split()[0])
-    assert count >= 77, out.stdout
+    assert count >= 80, out.stdout
 
 
 # The host modules that cross as copies: each must equal its reference
@@ -91,18 +92,193 @@ COPIES = (
     "consensus/golden_multileader", "consensus/replay",
     "faults/byzantine", "faults/byzantine_worker", "faults/fuzz",
     "analysis/schedule",
+    "analysis/linter", "analysis/rules", "analysis/interleave",
+    "analysis/__main__",
     "sim/__init__", "sim/clock", "sim/committee", "sim/transport",
 )
 
 # Per module, the (reference text, port text) edits its copy makes.
 COPY_EDITS = {
-    # The linter comes with a later slice; the package holds the watchdog.
-    "analysis/__init__": (
+    # The linter's scope is the port: its package and its harness scripts
+    # parsed, README.md and tests/ as text; never the reference's tree.
+    "analysis/linter": (
         ((
-            "from .linter import Finding, load_project, run_lint  # noqa: F401\n"
+            "- **Project loading.**  Python files under ``narwhal_tpu/`` and\n"
+            "  ``benchmark/`` are parsed to ASTs; ``README.md``, ``Makefile``,\n"
+            "  ``tests/*.py`` and the root bench scripts ride along as raw text for\n"
+            "  the cross-registry rules (env-table drift, declared-but-unread\n"
+            "  detection).  An ``overlay`` maps relative paths to replacement\n"
         ), (
-            "# The linter (linter.py, rules.py) is not ported yet: this package holds\n"
-            "# only the loop-stall watchdog.\n"
+            "- **Project loading.**  Python files under ``narwhal_tpu_torch/``\n"
+            "  and the port's harness scripts (``chip_smoke.py``, ``window_ab.py``)\n"
+            "  are parsed to ASTs (never the reference package or ``benchmark/``);\n"
+            "  ``README.md`` and ``tests/*.py`` ride along as raw text for the\n"
+            "  cross-registry rules (env-table drift, declared-but-unread\n"
+            "  detection).  An ``overlay`` maps relative paths to replacement\n"
+        )),
+        ((
+            "PY_DIRS = (\"narwhal_tpu\", \"benchmark\")\n"
+            "TEXT_GLOBS = (\n"
+            "    \"README.md\",\n"
+            "    \"Makefile\",\n"
+            "    \"tests\",\n"
+            "    \".github/workflows\",\n"
+            "    \"bench.py\",\n"
+            "    \"bench_consensus.py\",\n"
+            "    \"bench_cadence.py\",\n"
+            "    \"bench_crypto.py\",\n"
+            "    \"__graft_entry__.py\",\n"
+            ")\n"
+        ), (
+            "PY_DIRS = (\"narwhal_tpu_torch\", \"chip_smoke.py\", \"window_ab.py\")\n"
+            "TEXT_GLOBS = (\n"
+            "    \"README.md\",\n"
+            "    \"tests\",\n"
+            ")\n"
+        )),
+        ((
+            "    for sub in PY_DIRS:\n"
+            "        if not os.path.isdir(os.path.join(root, sub)):\n"
+        ), (
+            "    for sub in PY_DIRS:\n"
+            "        if os.path.isfile(os.path.join(root, sub)):\n"
+            "            project.files[sub] = SourceFile(sub, read(sub))\n"
+            "            continue\n"
+            "        if not os.path.isdir(os.path.join(root, sub)):\n"
+        )),
+    ),
+    # Path prefixes, the modules the rules read, and the messages that
+    # name the port's modules and CLI.
+    "analysis/rules": (
+        ((
+            "inside ``async def`` under narwhal_tpu/ |\n"
+        ), (
+            "inside ``async def`` under narwhal_tpu_torch/ |\n"
+        )),
+        ((
+            "def rule_no_blocking_in_async(project: Project) -> Iterator[Finding]:\n"
+            "    for sf in project.files.values():\n"
+            "        if not sf.rel.startswith(\"narwhal_tpu/\") or sf.tree is None:\n"
+        ), (
+            "def rule_no_blocking_in_async(project: Project) -> Iterator[Finding]:\n"
+            "    for sf in project.files.values():\n"
+            "        if not sf.rel.startswith(\"narwhal_tpu_torch/\") or sf.tree is None:\n"
+        )),
+        ((
+            "def rule_task_retention(project: Project) -> Iterator[Finding]:\n"
+            "    for sf in project.files.values():\n"
+            "        if not sf.rel.startswith(\"narwhal_tpu/\") or sf.tree is None:\n"
+        ), (
+            "def rule_task_retention(project: Project) -> Iterator[Finding]:\n"
+            "    for sf in project.files.values():\n"
+            "        if not sf.rel.startswith(\"narwhal_tpu_torch/\") or sf.tree is None:\n"
+        )),
+        ((
+            "                \"narwhal_tpu.utils.tasks.spawn() or retain the handle\",\n"
+        ), (
+            "                \"narwhal_tpu_torch.utils.tasks.spawn() or retain the handle\",\n"
+        )),
+        ((
+            "    \"narwhal_tpu/messages.py\",\n"
+            "    \"narwhal_tpu/primary/messages.py\",\n"
+        ), (
+            "    \"narwhal_tpu_torch/messages.py\",\n"
+            "    \"narwhal_tpu_torch/primary/messages.py\",\n"
+        )),
+        ((
+            "    used: Set[str] = set()\n"
+            "    findings: List[Finding] = []\n"
+            "    for sf in project.files.values():\n"
+            "        if not sf.rel.startswith(\"narwhal_tpu/\") or sf.tree is None:\n"
+        ), (
+            "    used: Set[str] = set()\n"
+            "    findings: List[Finding] = []\n"
+            "    for sf in project.files.values():\n"
+            "        if not sf.rel.startswith(\"narwhal_tpu_torch/\") or sf.tree is None:\n"
+        )),
+        ((
+            "_CONSUMER_FILES = (\n"
+            "    \"benchmark/metrics_check.py\",\n"
+            "    \"benchmark/trajectory.py\",\n"
+            "    \"benchmark/scraper.py\",\n"
+            ")\n"
+        ), (
+            "# The port's consumers: the health rules, and the smoke run that\n"
+            "# reads the nodes' snapshots.\n"
+            "_CONSUMER_FILES = (\n"
+            "    \"narwhal_tpu_torch/metrics.py\",\n"
+            "    \"chip_smoke.py\",\n"
+            ")\n"
+        )),
+        ((
+            "                    sf.rel != \"narwhal_tpu/metrics.py\"\n"
+        ), (
+            "                    sf.rel != \"narwhal_tpu_torch/metrics.py\"\n"
+        )),
+        ((
+            "_ENV_MODULE = \"narwhal_tpu/utils/env.py\"\n"
+        ), (
+            "_ENV_MODULE = \"narwhal_tpu_torch/utils/env.py\"\n"
+        )),
+        ((
+            "                        \"narwhal_tpu/utils/env.py registry (name, type, \"\n"
+        ), (
+            "                        \"narwhal_tpu_torch/utils/env.py registry (name, type, \"\n"
+        )),
+        ((
+            "                        \"narwhal_tpu.utils.env (env_flag/env_int/\"\n"
+        ), (
+            "                        \"narwhal_tpu_torch.utils.env (env_flag/env_int/\"\n"
+        )),
+        ((
+            "                        \"reads through narwhal_tpu.utils.env accessors\",\n"
+        ), (
+            "                        \"reads through narwhal_tpu_torch.utils.env accessors\",\n"
+        )),
+        ((
+            "            \"(searched narwhal_tpu/, benchmark/, tests/, Makefile, CI \"\n"
+            "            \"workflows) — delete the declaration or the dead knob\",\n"
+        ), (
+            "            \"(searched narwhal_tpu_torch/, chip_smoke.py, window_ab.py, \"\n"
+            "            \"README.md, tests/) — delete the declaration or the dead knob\",\n"
+        )),
+        ((
+            "            \"`python -m narwhal_tpu.analysis --env-table`\",\n"
+        ), (
+            "            \"`python -m narwhal_tpu_torch.analysis --env-table`\",\n"
+        )),
+        ((
+            "            \"regenerate with `python -m narwhal_tpu.analysis \"\n"
+        ), (
+            "            \"regenerate with `python -m narwhal_tpu_torch.analysis \"\n"
+        )),
+    ),
+    "analysis/interleave": (
+        ((
+            "1. **Units.**  Every function/method under ``narwhal_tpu/`` (nested\n"
+        ), (
+            "1. **Units.**  Every function/method under ``narwhal_tpu_torch/`` (nested\n"
+        )),
+        ((
+            "        if not sf.rel.startswith(\"narwhal_tpu/\") or sf.tree is None:\n"
+        ), (
+            "        if not sf.rel.startswith(\"narwhal_tpu_torch/\") or sf.tree is None:\n"
+        )),
+    ),
+    "analysis/__main__": (
+        ((
+            "    python -m narwhal_tpu.analysis [--root DIR] [--report out.json]\n"
+            "    python -m narwhal_tpu.analysis --env-table\n"
+        ), (
+            "    python -m narwhal_tpu_torch.analysis [--root DIR] [--report out.json]\n"
+            "    python -m narwhal_tpu_torch.analysis --env-table\n"
+        )),
+        ((
+            "    if not os.path.isdir(os.path.join(root, \"narwhal_tpu\")):\n"
+            "        print(f\"--root {root!r} does not contain narwhal_tpu/\", file=sys.stderr)\n"
+        ), (
+            "    if not os.path.isdir(os.path.join(root, \"narwhal_tpu_torch\")):\n"
+            "        print(f\"--root {root!r} does not contain narwhal_tpu_torch/\", file=sys.stderr)\n"
         )),
     ),
     # Every entry point takes ``device``: spawn_primary_node passes it to
@@ -345,6 +521,8 @@ SLICE_MODULES = (
     "consensus.golden_multileader", "consensus.replay",
     "faults.byzantine", "faults.byzantine_worker", "faults.fuzz",
     "analysis.schedule", "sim.clock", "sim.transport", "sim.committee", "sim",
+    "analysis.linter", "analysis.rules", "analysis.interleave",
+    "analysis.__main__",
 )
 
 
@@ -372,14 +550,19 @@ def no_card():
 
 
 def test_entry_points_raise_without_a_card(no_card):
-    from narwhal_tpu_torch.commit_step import entry
+    from narwhal_tpu_torch.commit_step import dryrun_multichip, entry
     from narwhal_tpu_torch.consensus import Consensus
     from narwhal_tpu_torch.convert import window_from_numpy
     from narwhal_tpu_torch.crypto import backend as cb
     from narwhal_tpu_torch.ops import ed25519 as E
     from narwhal_tpu_torch.ops import resolve_device
     from narwhal_tpu_torch.config import Committee
-    from narwhal_tpu_torch.ops.reachability import KernelTusk
+    from narwhal_tpu_torch.ops.reachability import (
+        KernelTusk,
+        chain_step_block,
+        commit_step_sharded,
+        support_votes_block,
+    )
 
     from tests.common import committee
 
@@ -410,6 +593,27 @@ def test_entry_points_raise_without_a_card(no_card):
     assert cb.get_backend().name == "cpu"
     # device="cpu" is the caller's own choice, and runs the plain twin.
     assert resolve_device("cpu").type == "cpu"
+    # The sharded commit step: its ranks go to the card unless the caller
+    # names the CPU, and a tensor on the card launches the block kernels or
+    # raises (without a card, stand-ins for such tensors raise before any
+    # collective).
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(4, backend="gloo")
+
+    def on_card(*shape):
+        return types.SimpleNamespace(device=torch.device("cuda"), shape=shape)
+
+    blk = on_card(16, 16, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        commit_step_sharded(None, blk, on_card(16, 4), on_card(16, 4), on_card(16),
+                            on_card(4), 14, on_card(16), n=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain_step_block(on_card(16, 4), on_card(4), on_card(4), on_card(4, 2, 4),
+                         on_card())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        support_votes_block(on_card(16, 4), on_card(4))
 
 
 def test_kernel_rule_stays_classic_only():

@@ -12,7 +12,8 @@
 - Then the cases of ``tests/test_sim.py`` and ``tests/test_schedule.py``
   run again on the port, with their harness helpers
   (``benchmark/race_explore.py``, ``benchmark/sim_bench.py``) as port
-  copies."""
+  copies; the race explorer's static mutation arm lints the port's
+  ``consensus/tusk.py`` with the port's linter."""
 
 import json
 import os
@@ -26,10 +27,8 @@ from tests.test_torch_tasks import mirror, port_benchmark
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # The harness helpers the reference tests import, pointed at the port
-# (the race explorer's linter import left out: the linter is not ported,
-# and no mirrored case reaches it).
-RACE = port_benchmark("race_explore", subs=(
-    ("from narwhal_tpu.analysis import run_lint  # noqa: E402\n", ""),))
+# (the race explorer lints with the port's linter).
+RACE = port_benchmark("race_explore")
 SIM_BENCH = port_benchmark("sim_bench")
 
 MIRRORED_SIM = mirror(
@@ -46,6 +45,18 @@ MIRRORED_SCHEDULE = mirror(
 def test_mirrors_cover_the_reference_cases():
     assert len(MIRRORED_SIM) == 14
     assert len(MIRRORED_SCHEDULE) == 7
+
+
+def test_race_explorer_plants_its_race_in_the_ports_tusk():
+    # The static half of the explorer's mutation arm: its overlay is the
+    # port's consensus/tusk.py, linted by the port's linter, and the
+    # interleave-window rule flags the planted window there alone.
+    import importlib
+
+    findings = importlib.import_module(RACE).static_mutation_findings()
+    assert findings and any("_committing" in f for f in findings), findings
+    assert all(f.startswith("narwhal_tpu_torch/consensus/tusk.py:")
+               for f in findings), findings
 
 
 # -- the sim across packages --------------------------------------------------
