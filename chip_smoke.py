@@ -792,8 +792,8 @@ def phase_kernels(dag, keys, device, rng):
         ),
     )
 
-    # -- the committee-sharded step's two block kernels, every rank's block
-    #    at every slot of the multichip phase's cases
+    # -- the committee-sharded step's slot kernel, every rank's block at
+    #    every slot of the multichip phase's cases
     records.update(block_records(device))
 
     # -- the verifier's batch split (the reference's NARWHAL_VERIFY_MESH
@@ -1571,7 +1571,7 @@ def phase_main_path(keys, committee, signed, rng):
     assert tusk.python_fallbacks == 0, tusk.python_fallbacks
     # The node's path launches the verifier and the window's update and
     # scan; the flagship step's launch belongs to the commit_step phase,
-    # the sharded step's block kernels to the multichip phase.
+    # the sharded step's slot kernel to the multichip phase.
     off_path = check.KERNELS + ("commit_step",) + MULTICHIP_KERNELS
     assert all(launches.get(name, 0) == 0 for name in off_path), launches
     assert all(n > 0 for name, n in launches.items() if name not in off_path), launches
@@ -2836,13 +2836,18 @@ def phase_faults():
 
 
 # -- the committee-sharded commit step ----------------------------------------
-# Four ranks at the reference's dry-run shape (seed 1, W=16, N=16), at the
-# flagship's (seed 0, W=64, N=50: 13 columns a block, the last padded) and
-# at the kernels' largest (W=8, N=1024); an anchor of None is the
-# fixture's.
+# Four ranks at the reference's dry-run shape (seed 1, W=16, N=16), there
+# also at the anchors -1, 0 and W, at the flagship's (seed 0, W=64, N=50:
+# 13 columns a block, the last padded), at N=200 (50 columns a block: a
+# slot's 7 warps rounded up to a multiple of the row's 2 words) and at
+# the kernels' largest (W=8, N=1024); an anchor of None is the fixture's.
 MULTICHIP_RANKS = 4
-MULTICHIP_CASES = ((1, 16, 16, None), (0, 64, 50, None), (2, 8, 1024, None))
-MULTICHIP_KERNELS = ("chain_step_block", "support_votes_block")
+MULTICHIP_CASES = ((1, 16, 16, None), (1, 16, 16, -1), (1, 16, 16, 0), (1, 16, 16, 16),
+                   (0, 64, 50, None), (0, 64, 200, None), (2, 8, 1024, None))
+# The slot kernel alone also over two ranks, where a slot's warps are not
+# a multiple of the row's words either (3 warps, 2 words; 7 warps, 4).
+BLOCK_CASES_TWO_RANKS = ((1, 16, 65, None), (0, 64, 200, None))
+MULTICHIP_KERNELS = ("commit_step_block",)
 MULTICHIP_STEPS = 5  # timed sharded steps a rank runs after the checked one
 MULTICHIP_TIMEOUT_S = 300.0
 
@@ -2869,91 +2874,139 @@ def whole_fixture(case, device) -> list:
     return fixture
 
 
+def slot_bytes(k: int, n: int, nb: int, rows: int) -> int:
+    """Bytes one slot of the sharded step must move: the gathered record
+    (k × R words) and the frontier's ``rows`` of the packed parent block
+    read once, exists[w], leader[w], the leader flag and the anchor read
+    once, the rank's record written once."""
+    from narwhal_tpu_torch.ops import reachability as R
+
+    words = R.record_words(n, nb)
+    return 4 * k * words + 4 * rows * -(-nb // 32) + 2 * nb + 1 + 4 + 4 * words
+
+
+def block_launch(top: bool, W: int, N: int, nb: int) -> dict:
+    """A slot's launch of ``commit_step_block`` at (W, N) over blocks of
+    ``nb`` columns (``nt_commit_step_block_attributes``; ``top``: the top
+    slot's, which also packs): registers, local (spill) and static shared
+    bytes per thread, block size and blocks."""
+    from narwhal_tpu_torch.ops import kernel_fn
+
+    out = (ctypes.c_int * 5)()
+    rc = kernel_fn("nt_commit_step_block_attributes", ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int))(
+        int(top), W, N, nb, out)
+    assert rc == 0, f"nt_commit_step_block_attributes failed: cudaError {rc}"
+    return dict(zip(("registers_per_thread", "local_bytes_per_thread",
+                     "static_shared_bytes", "block", "blocks"), out))
+
+
 def block_records(device) -> dict:
-    """``nt_chain_step_block`` and ``nt_support_votes_block`` against their
-    plain twins on the card, tolerance 0: at each of MULTICHIP_CASES over
-    MULTICHIP_RANKS ranks, every rank's block at every slot below the
-    anchor, the record of the slot above taken from the whole window's
-    fused commit step (whose slice the block step must also equal), and
-    every rank's block of the gate's votes.  Times at the flagship's
-    shape, rank 0's block at the slot below the anchor."""
+    """``nt_commit_step_block`` against its plain twin on the card,
+    tolerance 0: at each of MULTICHIP_CASES over MULTICHIP_RANKS ranks and
+    BLOCK_CASES_TWO_RANKS over two, every rank's launch of every slot of
+    a step (the top one packing the rank's parent block), the record of
+    the slot above gathered from the kernel's own records; each slot's g
+    also held to the whole window's fused commit step.  Then, in each
+    case, the slot below the top one from a record whose frontier holds
+    every row (the anchor at the top slot).  Times over MULTICHIP_RANKS
+    ranks at the flagship's shape (rank 0's block at the slot below the
+    anchor, the top slot, the whole frontier) and the whole frontier at
+    each case's fixture anchor."""
     import torch
 
     from narwhal_tpu_torch.commit_step import commit_fixture, shard_commit_args
     from narwhal_tpu_torch.ops import LAUNCHES, reachability as R
 
-    k = MULTICHIP_RANKS
     before = dict(LAUNCHES)
-    chain, votes = Mismatch(), Mismatch()
+    mism = Mismatch()
     slice_mism = 0
     shapes, timed = [], {}
-    for case in MULTICHIP_CASES:
+    for k, case in ([(MULTICHIP_RANKS, case) for case in MULTICHIP_CASES]
+                    + [(2, case) for case in BLOCK_CASES_TWO_RANKS]):
+        seed, W, N, _ = case
+        ranked = k == MULTICHIP_RANKS
         fixture = whole_fixture(case, device)
-        _, W, N, _ = case
         _, _, leader, is_lead, _, anchor, _ = fixture
         _, _, reach = R.commit_step_fused(*fixture)
         nb = -(-N // k)
-        blocks = [shard_commit_args(r, k, commit_fixture(*case[:3]), device)
-                  for r in range(k)]
+        bw = -(-nb // 32)
+        np_fixture = list(commit_fixture(seed, W, N))
+        np_fixture[5] = anchor
+        blocks = [shard_commit_args(r, k, np_fixture, device) for r in range(k)]
+        anchor_t = torch.tensor(anchor, dtype=torch.int32, device=device)
+        # Every bit set before the top launch packs: a word it leaves
+        # unpacked adds rows to the frontier's parents.
+        packed = [torch.full((R.packed_words(W, N, nb),), -1, dtype=torch.int32,
+                             device=device) for _ in range(k)]
 
-        def padded(t):
-            out = torch.zeros(k * nb, dtype=torch.bool, device=device)
-            out[:N] = t
-            return out.view(k, nb)
+        def check(w, prev, r, anchor_t=anchor_t, k=k, blocks=blocks, packed=packed):
+            args = (w, *blocks[r][:5], anchor_t, blocks[r][6], prev, packed[r])
+            got = R.commit_step_block(*args, rank=r, k=k)
+            mism.add((got,), (R.commit_step_block_plain(*args, rank=r, k=k),))
+            return args, got
 
-        rows = []
-        for w in range(anchor - 1, -1, -1):
-            g_up, gl_up = padded(reach[w + 1]), padded(reach[w + 1] & leader[w + 1])
-            if w + 1 == anchor:
-                gl_up.zero_()  # the anchor's slot does not reset the chain
-            prev = torch.stack((g_up, gl_up), 1).contiguous()
-            lead = is_lead[w + 1]
-            front = gl_up if bool(lead) and bool(gl_up.any()) else g_up
-            rows.append(int(front.sum()))
-            scan = torch.stack((padded(reach[w]), padded(reach[w] & leader[w])), 1)
-            for r, blk in enumerate(blocks):
-                args = (blk[0][w + 1], blk[1][w], blk[2][w], prev, lead)
-                got = R.chain_step_block(*args)
-                chain.add((got,), (R.chain_step_block_plain(*args),))
-                slice_mism += diff(got, scan[r])[0]
-                if N == N_COMMITTEE and r == 0 and w == anchor - 1:
-                    timed["chain"] = (args, rows[-1] * nb + 2 * k * nb + 2 * nb + 1
-                                      + 2 * nb)
-        s, row = R._support_slot(anchor - 2, W), R._leader_row(anchor, W)
-        for r, blk in enumerate(blocks):
-            args = (blk[0][s], blk[2][row])
-            votes.add((R.support_votes_block(*args),), (R.support_votes_block_plain(*args),))
-            if N == N_COMMITTEE and r == 0:
-                timed["votes"] = (args, N * nb + nb + N)
-        shapes.append(dict(window=W, committee=N, ranks=k, block_cols=nb, slots=anchor,
-                           frontier_rows_mean=sum(rows) / max(1, len(rows))))
+        prev, rows = None, []
+        for w in R._step_slots(W):
+            if prev is not None:
+                front = R.unpack_bits(prev[:, :bw], nb).reshape(-1)[:N]
+                lead = R.unpack_bits(prev[:, bw:2 * bw], nb).reshape(-1)[:N]
+                rows.append(int((lead if lead.any() else front).sum()))
+            recs = []
+            for r in range(k):
+                args, got = check(w, prev, r)
+                recs.append(got)
+                want = torch.zeros(k * nb, dtype=torch.bool, device=device)
+                want[:N] = reach[w]
+                slice_mism += diff(R.unpack_bits(got[:bw], nb), want.view(k, nb)[r])[0]
+                if ranked and (W, N, case[3]) == (64, N_COMMITTEE, None) and r == 0:
+                    if w == W - 1:
+                        timed["top"] = (args, W * N * nb + 4 * len(packed[0]) + 4)
+                    elif w == anchor - 1:
+                        timed["slot"] = (args, slot_bytes(k, N, nb, rows[-1]))
+            prev = torch.stack(recs)
+        # The whole frontier: every rank's g set, the anchor at the top slot.
+        if W > 1:
+            full = torch.zeros_like(prev)
+            full[:, :bw] = R.pack_bits(torch.ones((k, nb), dtype=torch.bool, device=device))
+            top = torch.tensor(W - 1, dtype=torch.int32, device=device)
+            for r in range(k):
+                check(W - 1, None, r, top)
+                args, _ = check(W - 2, full, r, top)
+                if ranked and r == 0 and case[3] is None:
+                    timed[f"whole_w{W}_n{N}"] = (args, slot_bytes(k, N, nb, N))
+        shapes.append(dict(window=W, committee=N, ranks=k, block_cols=nb, anchor=anchor,
+                           record_words=R.record_words(N, nb),
+                           packed_words=R.packed_words(W, N, nb), slots=len(rows) + 1,
+                           frontier_rows_mean=sum(rows) / max(1, len(rows)),
+                           launch_top=block_launch(True, W, N, nb),
+                           launch_slot=block_launch(False, W, N, nb)))
 
-    def record(name, replaces, mism, fn, plain, args, nbytes, **extra):
-        return dict(
-            replaces=replaces, source="narwhal_tpu_torch/csrc/reachability.cu",
-            mismatches=mism.count + extra.get("scan_slice_mismatches", 0),
-            max_abs_err=mism.err, check_launches=LAUNCHES[name] - before[name],
-            ms=cuda_ms(lambda: fn(*args), 100, prefill=True),
-            host_ms_per_call=host_ms(lambda: fn(*args), 100),
-            plain_ms=cuda_ms(lambda: plain(*args), 20), library_ms=None,
-            bound_ms=1000 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
-            extra=dict(shapes=shapes, block_bytes_w64_n50=nbytes, **extra))
+    k = MULTICHIP_RANKS
 
-    # Bytes: for the chain step the frontier's rows of the block, the
-    # gathered record of the slot above, exists, the leader and the flag
-    # read once, the two output rows written once; for the votes the child
-    # slot's block and the leader's row read once, the votes written once.
-    graft = "__graft_entry__.py:147 (jax.jit of make_commit_step over a committee mesh: "
-    return {
-        "chain_step_block": record(
-            "chain_step_block", graft + "GSPMD's column-sharded _chain_scan step, "
-            "narwhal_tpu/ops/reachability.py:88)", chain, R.chain_step_block,
-            R.chain_step_block_plain, *timed["chain"], scan_slice_mismatches=slice_mism),
-        "support_votes_block": record(
-            "support_votes_block", graft + "GSPMD's column-sharded support_stake "
-            "votes, narwhal_tpu/ops/reachability.py:267)", votes, R.support_votes_block,
-            R.support_votes_block_plain, *timed["votes"]),
-    }
+    def ms(name):
+        args = timed[name][0]
+        return cuda_ms(lambda: R.commit_step_block(*args, rank=0, k=k), 100, prefill=True)
+
+    args, nbytes = timed["slot"]
+    graft = ("__graft_entry__.py:147 (jax.jit of make_commit_step over a committee mesh: "
+             "GSPMD's column-sharded _chain_scan step, narwhal_tpu/ops/reachability.py:88, "
+             "and its support_stake votes, reachability.py:268)")
+    return {"commit_step_block": dict(
+        replaces=graft, source="narwhal_tpu_torch/csrc/reachability.cu",
+        mismatches=mism.count + slice_mism, max_abs_err=mism.err,
+        check_launches=LAUNCHES["commit_step_block"] - before["commit_step_block"],
+        ms=ms("slot"),
+        host_ms_per_call=host_ms(lambda: R.commit_step_block(*args, rank=0, k=k), 100),
+        plain_ms=cuda_ms(lambda: R.commit_step_block_plain(*args, rank=0, k=k), 20),
+        library_ms=None, bound_ms=1000 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+        extra=dict(
+            shapes=shapes, scan_slice_mismatches=slice_mism, slot_bytes_w64_n50=nbytes,
+            ms_top_w64_n50=ms("top"),
+            bound_ms_top_w64_n50=1000 * timed["top"][1] / HBM_BYTES_PER_S,
+            **{f"ms_{name}": ms(name) for name in timed if name.startswith("whole")},
+            **{f"bound_ms_{name}": 1000 * timed[name][1] / HBM_BYTES_PER_S
+               for name in timed if name.startswith("whole")}))}
 
 
 def phase_multichip():
@@ -2961,11 +3014,14 @@ def phase_multichip():
     (``narwhal_tpu_torch.commit_step.dryrun_multichip``): MULTICHIP_RANKS
     gloo ranks sharing the card, one process each, at MULTICHIP_CASES,
     then an NCCL world of one rank a visible card at the reference's
-    shape.  Each rank resets the launch counts just before its checked
-    step and reads them just after, checks its result (rank 0 against the
-    whole window), then times MULTICHIP_STEPS steps.  Here every rank's
-    result is held to ``commit_step_fused`` on the whole window, tolerance
-    0, and both block kernels must have launched in every rank."""
+    shape, the flagship and N=1024.  Each rank runs a first step (on NCCL
+    the graph's warm-up, capture and first replay), resets the launch
+    counts, runs the checked step and reads them, checks its result (rank
+    0 against the whole window), then times MULTICHIP_STEPS steps (on
+    NCCL eager and graph in turns).  Here every rank's result is held to
+    ``commit_step_fused`` on the whole window, tolerance 0, every rank must
+    have launched ``commit_step_block`` exactly once a slot, and every
+    NCCL rank must have run its step as a graph replay."""
     import torch
 
     from narwhal_tpu_torch.commit_step import dryrun_multichip
@@ -2977,7 +3033,8 @@ def phase_multichip():
     mism, launches, cases, worlds = 0, dict.fromkeys(MULTICHIP_KERNELS, 0), [], []
     for backend, ranks, world_cases in (
             ("gloo", MULTICHIP_RANKS, MULTICHIP_CASES),
-            ("nccl", cards, ((1, 16, 4 * cards, None),))):
+            ("nccl", cards, ((1, 16, 4 * cards, None), (0, 64, 50, None),
+                             (2, 8, 1024, None)))):
         t0 = time.perf_counter()
         records = dryrun_multichip(ranks, backend=backend, cases=world_cases,
                                    steps=MULTICHIP_STEPS, timeout=MULTICHIP_TIMEOUT_S)
@@ -2985,19 +3042,23 @@ def phase_multichip():
         for i, case in enumerate(world_cases):
             support, committed, reach = R.commit_step_fused(*whole_fixture(case, device))
             want = (int(support), bits(committed), bits(reach))
+            _, W, N, _ = case
             per_rank = []
             for rank_records in records:
                 rec = rank_records[i]
                 mism += (rec["support"], rec["committed_bits"], rec["reach_bits"]) != want
-                step = {name: rec["launches"].get(name, 0) for name in MULTICHIP_KERNELS}
-                assert all(step.values()), (backend, case, rec["rank"], rec["launches"])
+                assert rec["launches"] == {"commit_step_block": len(R._step_slots(W))}, (
+                    backend, case, rec["rank"], rec["launches"])
+                assert rec["graph"] == (backend == "nccl"), (backend, case, rec["rank"])
                 for name in MULTICHIP_KERNELS:
-                    launches[name] += step[name]
+                    launches[name] += rec["launches"][name]
                 per_rank.append(dict(
                     rank=rec["rank"], device=rec["device"], backend=rec["backend"],
-                    launches_per_step=step, block_step_ms=rec["block_step_ms"],
-                    step_wall_ms=rec["step_wall_ms"], first_step_ms=rec["first_step_ms"]))
-            _, W, N, _ = case
+                    graph=rec["graph"], launches_per_step=rec["launches"],
+                    block_step_ms=rec["block_step_ms"], top_step_ms=rec["top_step_ms"],
+                    step_wall_ms=rec["step_wall_ms"], first_step_ms=rec["first_step_ms"],
+                    **{key: rec[key] for key in ("step_wall_ms_graph", "step_wall_ms_eager")
+                       if key in rec}))
             nb = -(-N // ranks)
             cases.append(dict(
                 backend=backend, ranks=ranks, seed=case[0], window=W, committee=N,
@@ -3010,7 +3071,7 @@ def phase_multichip():
     assert mism == 0, f"sharded steps != commit_step_fused: {mism} rank results"
     flagship = [c for c in cases if (c["window"], c["committee"]) == (64, N_COMMITTEE)]
     assert [(c["support"], c["committed"], c["reach_cells"]) for c in flagship] == [
-        (28, 26, 2477)], flagship
+        (28, 26, 2477)] * 2, flagship
     result = dict(
         phase="multichip", cards=cards, worlds=worlds, cases=cases, mismatches=mism,
         tolerance=0, launches=launches, seconds=time.perf_counter() - t_phase,
@@ -3136,7 +3197,8 @@ def main() -> int:
          **({k: r["extra"][k] for k in ("launch_w64_n50", "registers_by_n",
                                         "ms_two_launches", "ms_chain_scan_alone")}
             if name == "commit_step" else {}),
-         **({"shapes": r["extra"]["shapes"]} if name in MULTICHIP_KERNELS else {})}
+         **({k: v for k, v in r["extra"].items() if k != "scan_slice_mismatches"}
+            if name in MULTICHIP_KERNELS else {})}
         for name, r in records.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

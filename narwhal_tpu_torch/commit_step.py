@@ -18,8 +18,8 @@ reference's bit for bit.
 split over k ranks, one process each (:func:`shard_commit_args`,
 :func:`~.ops.reachability.commit_step_sharded`), as the reference's
 ``dryrun_multichip`` runs it over a ``committee`` mesh: on k cards over
-NCCL, or with ``backend="gloo"`` on ranks that share cards or run on the
-CPU.
+NCCL, each rank's step one CUDA graph, or with ``backend="gloo"`` on ranks
+that share cards or run on the CPU, eagerly.
 """
 
 from __future__ import annotations
@@ -37,10 +37,14 @@ import torch
 
 from .ops import LAUNCHES, reset_launches, resolve_device
 from .ops.reachability import (
-    chain_step_block,
+    commit_step_block,
     commit_step_fused,
     commit_step_plain,
     commit_step_sharded,
+    pack_bits,
+    packed_words,
+    graph_replays,
+    record_words,
 )
 
 WINDOW = 64
@@ -168,12 +172,14 @@ def _dryrun_multichip_impl(rank: int, world: int, device: Optional[str], backend
                            init_method: str, out: str, cases: Sequence[tuple],
                            steps: int = 0) -> None:
     """One rank of :func:`dryrun_multichip`: for each case (seed, W, N,
-    anchor slot or None for the fixture's), the sharded step on this rank's
-    slice of :func:`commit_fixture`, checked (``support >= 0``, reach of
-    shape (W, N), and on rank 0 equal to :func:`~.ops.reachability.commit_step_plain`
-    and, on a card, :func:`~.ops.reachability.commit_step_fused` on the
-    whole window), then with ``steps`` > 0 timed.  Writes one record per
-    case as JSON to ``out``."""
+    anchor slot or None for the fixture's), a first sharded step on this
+    rank's slice of :func:`commit_fixture` (on NCCL the graph's warm-up,
+    capture and first replay), then the checked step, its launches counted
+    from 0 (``support >= 0``, reach of shape (W, N), and on rank 0 equal
+    to :func:`~.ops.reachability.commit_step_plain` and, on a card,
+    :func:`~.ops.reachability.commit_step_fused` on the whole window),
+    then with ``steps`` > 0 timed.  Writes one record per case as JSON to
+    ``out``."""
     import torch.distributed as dist
 
     if device == "cpu":
@@ -192,11 +198,17 @@ def _dryrun_multichip_impl(rank: int, world: int, device: Optional[str], backend
                 fixture[5] = anchor
             args = shard_commit_args(rank, world, fixture, dev)
             dist.barrier()
-            reset_launches()
             t0 = time.perf_counter()
-            support, committed, reach = commit_step_sharded(None, *args, n=n)
+            commit_step_sharded(None, *args, n=n)
             _sync(dev)
             first_ms = 1000 * (time.perf_counter() - t0)
+            dist.barrier()
+            reset_launches()
+            replays = graph_replays()
+            support, committed, reach = commit_step_sharded(None, *args, n=n)
+            _sync(dev)
+            # Whether the checked step was a graph replay, read off the call.
+            graph = graph_replays() == replays + 1
             launches = {k: v for k, v in LAUNCHES.items() if v}
             where = f"seed {seed}, W={window}, N={n}, anchor {fixture[5]}"
             if int(support) < 0 or reach.shape != (window, n):
@@ -214,14 +226,14 @@ def _dryrun_multichip_impl(rank: int, world: int, device: Optional[str], backend
                     if not all(torch.equal(a, b) for a, b in zip(got, want)):
                         raise RuntimeError(f"sharded != {oracle.__name__} at {where}")
             rec = dict(
-                rank=rank, world=world, backend=backend, device=str(dev),
+                rank=rank, world=world, backend=backend, device=str(dev), graph=graph,
                 seed=seed, window=window, committee=n, anchor_slot=fixture[5],
                 parent_block=list(args[0].shape), support=int(support),
                 committed=int(committed.sum()), reach_cells=int(reach.sum()),
                 committed_bits=_bits(committed), reach_bits=_bits(reach),
                 launches=launches, first_step_ms=first_ms)
             if steps:
-                rec.update(_time_step(args, n, steps, dev))
+                rec.update(_time_step(args, n, steps, dev, graph))
             records.append(rec)
         with open(out, "w") as f:
             json.dump(records, f)
@@ -229,56 +241,83 @@ def _dryrun_multichip_impl(rank: int, world: int, device: Optional[str], backend
         dist.destroy_process_group()
 
 
-def _time_step(args, n: int, steps: int, dev) -> dict:
-    """Wall ms of one sharded step (``steps`` of them, each rank starting
-    together, synchronized), and on a card the device ms of one
-    :func:`~.ops.reachability.chain_step_block` launch on this rank's block
-    by CUDA events, the ranks timing one after another (ranks that share a
-    card would otherwise time each other's contexts)."""
+def _steps_ms(args, n: int, steps: int, dev, graph: bool) -> float:
+    """Wall ms of one sharded step, over ``steps`` of them, the ranks
+    starting together, synchronized at the end."""
     import torch.distributed as dist
 
     dist.barrier()
     t0 = time.perf_counter()
     for _ in range(steps):
-        commit_step_sharded(None, *args, n=n)
+        commit_step_sharded(None, *args, n=n, graph=graph)
     _sync(dev)
-    out = {"steps_timed": steps,
-           "step_wall_ms": 1000 * (time.perf_counter() - t0) / steps,
-           "block_step_ms": None}
+    return 1000 * (time.perf_counter() - t0) / steps
+
+
+def _time_step(args, n: int, steps: int, dev, graph: bool) -> dict:
+    """Wall ms of one sharded step (``steps`` of them, each rank starting
+    together, synchronized); where the step is a CUDA graph, the graph's
+    replay and the same step run eagerly, in turns (eager, graph, graph,
+    eager).  On a card also the device ms of one
+    :func:`~.ops.reachability.commit_step_block` launch on this rank's
+    block (:func:`_block_step_ms`), the ranks timing one after another
+    (ranks that share a card would otherwise time each other's
+    contexts)."""
+    import torch.distributed as dist
+
+    out = {"steps_timed": steps, "block_step_ms": None, "top_step_ms": None}
+    if graph:
+        turns = [_steps_ms(args, n, steps, dev, g) for g in (False, True, True, False)]
+        out.update(step_wall_ms=(turns[1] + turns[2]) / 2, step_wall_ms_graph=turns[1:3],
+                   step_wall_ms_eager=[turns[0], turns[3]])
+    else:
+        out["step_wall_ms"] = _steps_ms(args, n, steps, dev, False)
     k, rank = dist.get_world_size(), dist.get_rank()
     for turn in range(k):
         dist.barrier()
         if turn == rank and dev.type == "cuda" and args[0].shape[0] > 1:
-            out["block_step_ms"] = _block_step_ms(*args[:4], k, dev)
+            out.update(_block_step_ms(args, rank, k, dev))
     return out
 
 
-def _block_step_ms(parent, exists, leader, is_lead, k: int, dev) -> float:
-    """Device ms of one :func:`~.ops.reachability.chain_step_block` launch
-    on a rank's block, by CUDA events around 100 back to back (the slot
-    below the top one, from a frontier that holds every row).  A spin
-    kernel first holds the stream while the host enqueues them, so the
-    events time the launches on the card and not the host's launch rate
-    (a launch takes the host longer than the card)."""
-    W, _, nb = parent.shape
-    prev = torch.zeros((k, 2, nb), dtype=torch.bool, device=dev)
-    prev[:, 0] = True
-    res = torch.empty((2, nb), dtype=torch.bool, device=dev)
-    reps = 100
-    for _ in range(3):
-        chain_step_block(parent[W - 1], exists[W - 2], leader[W - 2], prev,
-                         is_lead[W - 1], out=res)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(dev)
-    torch.cuda._sleep(SPIN_CYCLES_PER_LAUNCH * reps)
-    start.record()
-    for _ in range(reps):
-        chain_step_block(parent[W - 1], exists[W - 2], leader[W - 2], prev,
-                         is_lead[W - 1], out=res)
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(stop) / reps
+def _block_step_ms(args, rank: int, k: int, dev) -> dict:
+    """Device ms of one :func:`~.ops.reachability.commit_step_block` launch
+    on a rank's block by CUDA events around 100 back to back: the slot
+    below the top one from a record whose frontier holds every row (the
+    anchor at the top slot), and the top slot's launch, which also packs
+    the parent block.  A spin kernel first holds the stream while the host
+    enqueues them, so the events time the launches on the card and not
+    the host's launch rate (a launch takes the host longer than the
+    card)."""
+    parent, exists, leader, is_lead, stake, _, onehot = args
+    W, n, nb = parent.shape
+    anchor = torch.tensor(W - 1, dtype=torch.int32, device=dev)
+    prev = torch.zeros((k, record_words(n, nb)), dtype=torch.int32, device=dev)
+    prev[:, : -(-nb // 32)] = pack_bits(torch.ones((k, nb), dtype=torch.bool, device=dev))
+    packed = torch.empty(packed_words(W, n, nb), dtype=torch.int32, device=dev)
+    res = torch.empty(record_words(n, nb), dtype=torch.int32, device=dev)
+    blk = (parent, exists, leader, is_lead, stake, anchor, onehot)
+    launches = {
+        "top_step_ms": lambda: commit_step_block(W - 1, *blk, None, packed, rank=rank, k=k,
+                                                 out=res),
+        "block_step_ms": lambda: commit_step_block(W - 2, *blk, prev, packed, rank=rank,
+                                                   k=k, out=res),
+    }
+    reps, out = 100, {}
+    for name, launch in launches.items():
+        for _ in range(3):
+            launch()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(SPIN_CYCLES_PER_LAUNCH * reps)
+        start.record()
+        for _ in range(reps):
+            launch()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        out[name] = start.elapsed_time(stop) / reps
+    return out
 
 
 def _run_ranks(codes: List[str], workdir: str, *, env=None, cwd=None,

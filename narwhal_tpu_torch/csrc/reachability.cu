@@ -13,12 +13,12 @@
 //                              one program (__graft_entry__.make_commit_step):
 //                              the chain scan's launch, with the support
 //                              gate on its idle blocks
-//   chain_step_block,       <- the same program under jax.jit over a
-//   support_votes_block        `committee` mesh (__graft_entry__.py:147-193),
+//   commit_step_block       <- the same program under jax.jit over a
+//                              `committee` mesh (__graft_entry__.py:147-193),
 //                              which GSPMD partitions on the cited parent's
-//                              column: one descending slot of _chain_scan, and
-//                              the support gate's per-child votes, on one
-//                              rank's block of columns
+//                              column: one slot of _chain_scan on one rank's
+//                              block of columns, with its part of the
+//                              support gate's votes and stake
 //
 // The commit path's window is int32 presence COUNTS: exists[W][N] and
 // parent[W][N][N], where parent[w][n][m] != 0 means certificate (w, n)
@@ -376,81 +376,258 @@ __global__ void __launch_bounds__(32 * kGateBlockWarps)
   }
 }
 
-// The committee-sharded commit step.  Rank r of k holds the columns
-// [r * Nb, (r + 1) * Nb) of the window's cited-parent axis (Nb =
-// ceil(N / k), the last block padded with columns that do not exist), and
-// every slot's step needs the whole frontier, so the ranks all-gather each
-// step's (g, g & leader) blocks (ops/reachability.py, commit_step_sharded).
+// The committee-sharded commit step, one slot a launch (commit_step_block).
 //
-// chain_step_block: one descending slot w on a rank's columns.  The block
-// first rebuilds the frontier from the gathered record of slot w + 1,
-// prev[k][2][Nb]: its g & leader where that slot is a leader slot and any
-// of those bits is set (the chain's reset to the leader), else its g; it
-// lists the frontier's rows in shared memory.  Then one thread a column
-// ORs the listed rows of parent[w + 1] in that column (a warp's 32 loads of
-// one row are neighbours) and ANDs exists and the leader.  What bounds it
-// on the card: the bytes of the frontier's rows in the rank's columns,
-// |frontier| * Nb, at most 50 * 13 bytes at the flagship's N = 50 over four
-// ranks, so one launch costs its latency; the design keeps it to one
-// launch a slot with no host work between (the frontier's rebuild is
-// inside it), which is what lets a step's W launches and gathers be
-// enqueued whole.
-constexpr int kBlockStepThreads = 128;
+// Replaces what jax.jit of __graft_entry__.make_commit_step runs over a
+// `committee` mesh (__graft_entry__.py:147-193): GSPMD partitions the
+// lax.scan of _chain_scan (narwhal_tpu/ops/reachability.py:88) and the
+// support_stake votes (reachability.py:268) on the cited parent's column.
+// Rank r of k holds the columns [r * Nb, (r + 1) * Nb) of parent, exists,
+// the leader one-hots and the stake (Nb = ceil(N / k), the last block
+// padded with columns that do not exist), and every slot's step needs the
+// whole frontier, so the ranks all-gather each slot's record
+// (ops/reachability.py, commit_step_sharded).  The step follows the JAX
+// scan: W launches, w = W-1 down to 0, whatever the anchor, each applying
+// the scan's anchor rules to the anchor slot it reads on the card.
+//
+// A rank's record of a slot is R = 2 BW + VW + 1 words of 32 bits
+// (BW = ceil(Nb / 32), VW = ceil(N / 32)): g on its columns, g & leader
+// (written only where the slot may lead: is_leader_slot[w] and w below
+// the anchor), the gate's votes on the N child rows from its columns, and
+// one int32 of partial support.  The gate rides the chain's records: the
+// top slot's launch writes this rank's votes, the next launch ORs every
+// rank's votes and sums the stake of this rank's voters, and the caller
+// sums the k partials after the last gather.  So the step has no
+// reduction collective.
+//
+// What bounds a slot on the card: the bytes of the frontier's rows of
+// parent[w + 1] in the rank's columns, at most N * Nb bits (32 KB at
+// N = 1024 over four ranks, 2 KB at the flagship's N = 50), and the
+// gathered record, k * R words: one launch's latency at every shape the
+// step runs.  The design:
+//   - the top launch packs the rank's whole parent block to bits, once a
+//     step, into scratch the wrapper allocates (BWP words a row, BW rounded
+//     up to a power of two; every slot padded to 16 bytes), on blocks of
+//     their own, a warp a row word of 32 rows of a slot; the warps that
+//     pack the gate's child slot also test each row against the leader's
+//     row and write the votes;
+//   - a slot's block rebuilds the frontier from the gathered record with
+//     one ballot a frontier word, then splits the frontier's rows over its
+//     warps: the slot's packed rows are read as one flat run of 16-byte
+//     loads, a row being BWP / 4 lanes (or four rows a lane where BWP < 4),
+//     neighbouring lanes on neighbouring addresses, each lane ORing the
+//     words of the rows in the frontier into registers.  The lanes' words
+//     meet through shuffles and one shared-memory atomic a word a warp.
+//     No thread walks the frontier's rows one after another.
+// One block, a thread an authority and a column (32 * ceil(max(N, Nb) /
+// 32) threads rounded up to a multiple of 32 * BWP, at most
+// kSlotThreads), holds every row of a
+// slot at N <= 1024: at most 8,192 16-byte loads (N = 1024 on one rank),
+// 8 a thread, issued together.  The launch sizes the block to the shape:
+// with 1,024 threads at every shape the top launch at N = 50 took half as
+// long again (PERF.md), its packing spread over fewer blocks.
+constexpr int kSlotThreads = 1024;
+constexpr int kSlotWarps = kSlotThreads / 32;
 
-struct BlockStepArgs {
-  const uint8_t* parent_up;  // [N][Nb]: parent[w + 1] on the rank's columns
-  const uint8_t* exists;     // [Nb]: exists[w] on the rank's columns
-  const uint8_t* leader;     // [Nb]: leader_onehot[w] on the rank's columns
-  const uint8_t* prev;       // [k][2][Nb]: every rank's (g, g & leader) at w + 1
-  const uint8_t* prev_lead;  // is_leader_slot[w + 1]
-  uint8_t* out;              // [2][Nb]: this rank's (g, g & leader) at w
-  int N, Nb;
+struct SlotArgs {
+  const uint8_t* parent;         // [W][N][Nb]: the rank's parent columns (top launch)
+  uint32_t* packed;              // [W][SP]: parent to bits, row i of slot w at w*SP + i*BWP
+  const uint8_t* exists;         // [W][Nb]
+  const uint8_t* leader;         // [W][Nb]: leader_onehot on the rank's columns
+  const uint8_t* is_lead;        // [W]: is_leader_slot
+  const int32_t* stake;          // [Nb]
+  const int32_t* anchor;         // the anchor slot (0-d, on the card)
+  const uint8_t* anchor_onehot;  // [N]
+  const int32_t* prev;           // [k][R]: the gathered record of slot w + 1 (null at the top)
+  int32_t* out;                  // [R]: this rank's record of slot w
+  int w, W, N, Nb, k, lo, SP;    // lo = rank * Nb
 };
 
-__global__ void __launch_bounds__(kBlockStepThreads)
-    chain_step_block_kernel(BlockStepArgs a) {
-  __shared__ int rows[1024];
-  __shared__ int count;
-  const int t = (int)threadIdx.x;
-  if (t == 0) count = 0;
-  // Gathered element i of a half (0: g, 1: g & leader) of slot w + 1.
-  auto at = [&](int i, int half) {
-    const int r = i / a.Nb;
-    return a.prev[(2 * r + half) * a.Nb + (i - r * a.Nb)];
-  };
-  int any = 0;
-  for (int i = t; i < a.N; i += kBlockStepThreads) any |= at(i, 1);
-  const int half = __syncthreads_or(any) && *a.prev_lead ? 1 : 0;
-  for (int i = t; i < a.N; i += kBlockStepThreads)
-    if (at(i, half)) rows[atomicAdd(&count, 1)] = i;
-  __syncthreads();
-  const int j = (int)blockIdx.x * kBlockStepThreads + t;
-  if (j >= a.Nb) return;
-  uint8_t hit = 0;
-  for (int q = 0; q < count && !hit; ++q) hit = a.parent_up[rows[q] * a.Nb + j];
-  const uint8_t g = hit & a.exists[j];
-  a.out[j] = g;
-  a.out[a.Nb + j] = g & a.leader[j];
+// JAX's rule for a traced index into an axis of `size`: counted from the
+// end once when negative, then clamped into [0, size).
+__device__ __forceinline__ int dyn_index(int i, int size) {
+  if (i < 0) i += size;
+  return min(max(i, 0), size - 1);
 }
 
-// support_votes_block: the f+1 gate's votes on a rank's columns,
-// votes[i] = OR over the rank's columns j of parent_s[i][j] & leader[j],
-// one warp a child row (its lanes' loads are neighbours), for the ranks
-// to OR together.  Bound by its N * Nb bytes, a launch's latency at the
-// main path's shapes.
-constexpr int kVotesWarps = 8;
+// The top launch's packing blocks.  Warp v of pack block b packs row word
+// c = v mod BWP of the 32 rows [32m, 32m + 32) of one slot, for row group
+// gi = b * kGroups + v / BWP (kGroups = the block's warps / BWP, which
+// the launch makes a whole number; slot gi / G, m = gi mod G, G = VW
+// groups a slot): lane l reads byte 32c + l of each of the 32 rows (one 32-byte
+// run a row, all 32 loads in flight), then a ballot a row gives the row's
+// word c, kept by the lane of that row.  So the pack is one trip to
+// memory on every warp.  In the gate's child slot s each warp also ANDs
+// its words with the leader row's word c; the block's warps of a row
+// group OR their ballots of the results into one shared word, votes word
+// m.
+template <int BWP>
+__device__ __forceinline__ void pack_rows(const SlotArgs& a, int block) {
+  __shared__ uint32_t votes[kSlotWarps];
+  const int t = (int)threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int kGroups = (int)(blockDim.x >> 5) / BWP;
+  const int G = (a.N + 31) >> 5, BW = (a.Nb + 31) >> 5;
+  const int c = warp % BWP, gi = block * kGroups + warp / BWP;
+  const int anchor = *a.anchor;
+  const int s = dyn_index(anchor - 1, a.W), lrow = dyn_index(anchor - 2, a.W);
+  const bool live = gi < a.W * G;
+  const int slot = gi / G, m = gi - slot * G;
+  if (t < kSlotWarps) votes[t] = 0;
+  __syncthreads();
+  if (live) {
+    const int rows = min(32, a.N - 32 * m), col = 32 * c + lane;
+    const uint8_t* base = a.parent + ((size_t)slot * a.N + 32 * m) * a.Nb + col;
+    uint8_t x[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) x[r] = r < rows && col < a.Nb ? base[r * a.Nb] : 0;
+    const uint32_t lead =
+        __ballot_sync(0xffffffffu, col < a.Nb && a.leader[(size_t)lrow * a.Nb + col] != 0);
+    uint32_t word = 0;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const uint32_t b = __ballot_sync(0xffffffffu, x[r] != 0);
+      word = lane == r ? b : word;
+    }
+    if (lane < rows) a.packed[(size_t)slot * a.SP + (size_t)(32 * m + lane) * BWP + c] = word;
+    if (slot == s) {
+      const uint32_t v = __ballot_sync(0xffffffffu, (word & lead) != 0u);
+      if (lane == 0 && v != 0u) atomicOr(&votes[warp / BWP], v);
+    }
+  }
+  __syncthreads();
+  if (live && slot == s && c == 0 && lane == 0) a.out[2 * BW + m] = (int32_t)votes[warp / BWP];
+}
 
-__global__ void __launch_bounds__(32 * kVotesWarps)
-    support_votes_block_kernel(const uint8_t* __restrict__ parent_s,
-                               const uint8_t* __restrict__ leader,
-                               uint8_t* __restrict__ votes, int N, int Nb) {
-  const int lane = (int)(threadIdx.x & 31);
-  const int i = (int)blockIdx.x * kVotesWarps + (int)(threadIdx.x >> 5);
-  if (i >= N) return;
-  int v = 0;
-  for (int j = lane; j < Nb; j += 32) v |= parent_s[i * Nb + j] & leader[j];
-  v = __any_sync(0xffffffffu, v);
-  if (lane == 0) votes[i] = (uint8_t)v;
+// Slot w of the chain on the rank's columns, and its part of the gate.
+// Thread t owns authority t of the frontier and column t of the rank's
+// block.  Every load that does not wait on another is issued first, with
+// the anchor's: the gathered record's words, the slot's exists, leader
+// and flags of the thread's column, and the thread's first two 16-byte
+// runs of the packed rows of parent[w + 1] (those of rows outside the
+// frontier are dropped later).  So at the shapes the step runs (up to
+// 2 * 16 * threads bytes of packed rows: all but N = 1024 on one rank) a
+// slot is one trip to memory and two block barriers.
+template <int BWP>
+__device__ __forceinline__ void slot_step(const SlotArgs& a) {
+  __shared__ uint32_t front[32];  // the frontier, N bits
+  __shared__ uint32_t hit[BWP];   // the OR of its rows on the rank's columns
+  __shared__ int32_t part[kSlotWarps];
+  const int t = (int)threadIdx.x, lane = t & 31, warp = t >> 5, T = (int)blockDim.x;
+  const int W = a.W, N = a.N, Nb = a.Nb, w = a.w;
+  const int BW = (Nb + 31) >> 5, VW = (N + 31) >> 5, R = 2 * BW + VW + 1;
+  const int gate = W >= 2 ? W - 2 : -1;  // the slot that sums the gate's stake
+  const int anchor = *a.anchor;
+  const bool col = t < Nb && w >= 0;
+  const bool ex = col && a.exists[(size_t)w * Nb + t] != 0;
+  const bool ld = col && a.leader[(size_t)w * Nb + t] != 0;
+  const bool on = col && a.lo + t < N && a.anchor_onehot[a.lo + t] != 0;
+  const bool lead_slot = w >= 0 && a.is_lead[w] != 0;
+  // Authority t's bit in the slot above's g (fg) and g & leader (fgl);
+  // any: a word of some rank's g & leader, over the warp's lanes.
+  uint32_t fg = 0, fgl = 0, votes = 0;
+  int any = 0;
+  const int r = t / Nb, j = t - r * Nb;
+  const int n4 = a.SP >> 2;
+  const bool above = a.prev != nullptr && w >= 0;  // a slot above to read
+  const uint4* rows = reinterpret_cast<const uint4*>(a.packed + (size_t)(w + 1) * a.SP);
+  uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
+  if (above) {
+    if (t < n4) v0 = rows[t];
+    if (t + T < n4) v1 = rows[t + T];
+  }
+  if (a.prev != nullptr) {
+    if (t < N) {
+      fg = (uint32_t)a.prev[r * R + (j >> 5)] >> (j & 31) & 1u;
+      fgl = (uint32_t)a.prev[r * R + BW + (j >> 5)] >> (j & 31) & 1u;
+    }
+    for (int i = lane; i < a.k * BW; i += 32) {
+      const int q = i / BW;
+      any |= a.prev[q * R + BW + (i - q * BW)];
+    }
+    if (w == gate && t < Nb && a.lo + t < N) {
+      const int i = a.lo + t;
+      for (int q = 0; q < a.k; ++q) votes |= (uint32_t)a.prev[q * R + 2 * BW + (i >> 5)];
+      votes = votes >> (i & 31) & 1u;
+    }
+  }
+  // Below an anchor inside the window the frontier comes from the slot
+  // above; at the anchor it is the anchor; elsewhere it is empty.
+  const bool chain = above && w < anchor && anchor < W;
+  if (chain) {
+    if (t < BWP) hit[t] = 0;
+    // The chain's reset: the slot above's g & leader where any of it is
+    // set (it is written only where that slot may lead), else its g.
+    const bool reset = __any_sync(0xffffffffu, any != 0);
+    const uint32_t word = __ballot_sync(0xffffffffu, reset ? fgl : fg);
+    if (lane == 0 && warp < VW) front[warp] = word;
+    __syncthreads();
+    uint32_t acc[4] = {0u, 0u, 0u, 0u};
+    auto in_front = [&](int q) { return q < N && (front[q >> 5] >> (q & 31) & 1u); };
+    auto add = [&](int u, const uint4& v) {
+      if constexpr (BWP >= 4) {
+        if (in_front(4 * u / BWP)) acc[0] |= v.x, acc[1] |= v.y, acc[2] |= v.z, acc[3] |= v.w;
+      } else {
+        acc[0] |= in_front(4 * u / BWP) ? v.x : 0u;
+        acc[1] |= in_front((4 * u + 1) / BWP) ? v.y : 0u;
+        acc[2] |= in_front((4 * u + 2) / BWP) ? v.z : 0u;
+        acc[3] |= in_front((4 * u + 3) / BWP) ? v.w : 0u;
+      }
+    };
+    add(t, v0);
+    add(t + T, v1);
+#pragma unroll 4
+    for (int u = t + 2 * T; u < n4; u += T) add(u, rows[u]);
+    // Lane l's words are row words (4l + e) mod BWP: OR the lanes that
+    // share them, then one shared atomic a word.
+    constexpr int kKeep = BWP >= 4 ? BWP / 4 : 1;
+#pragma unroll
+    for (int off = 16; off >= kKeep; off >>= 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[e] |= __shfl_xor_sync(0xffffffffu, acc[e], off);
+    if (lane < kKeep)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (acc[e] != 0u) atomicOr(&hit[(4 * lane + e) % BWP], acc[e]);
+    __syncthreads();
+  }
+  // g and g & leader on the rank's columns, a ballot a word.
+  const bool g = w == anchor ? on : chain && ex && (hit[t >> 5] >> (t & 31) & 1u);
+  const bool lead = g && ld && lead_slot && w < anchor;
+  const uint32_t gw = __ballot_sync(0xffffffffu, g), glw = __ballot_sync(0xffffffffu, lead);
+  if (lane == 0 && warp < BW) {
+    a.out[warp] = (int32_t)gw;
+    a.out[BW + warp] = (int32_t)glw;
+  }
+  // The votes: the top launch's packing warps write them; zero elsewhere.
+  if (w != W - 1 && t < VW) a.out[2 * BW + t] = 0;
+  // The gate's slot (W - 2; -1, a launch of its own, for W = 1): the
+  // stake of this rank's child rows that some rank's columns voted for
+  // and that exist at the child slot.
+  if (w != gate) {
+    if (t == 0) a.out[R - 1] = 0;
+    return;
+  }
+  const int s = dyn_index(anchor - 1, W);
+  int32_t sum = votes && a.exists[(size_t)s * Nb + t] != 0 ? a.stake[t] : 0;
+  sum = __reduce_add_sync(0xffffffffu, sum);
+  if (lane == 0) part[warp] = sum;
+  __syncthreads();
+  if (t == 0) {
+    int32_t total = 0;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += part[i];
+    a.out[R - 1] = total;
+  }
+}
+
+// Block 0 steps slot w; the top launch's other blocks pack the parent
+// block (and write the votes).
+template <int BWP>
+__global__ void __launch_bounds__(kSlotThreads) commit_step_block_kernel(SlotArgs a) {
+  if (blockIdx.x == 0) {
+    slot_step<BWP>(a);
+    return;
+  }
+  pack_rows<BWP>(a, (int)blockIdx.x - 1);
 }
 
 }  // namespace
@@ -721,32 +898,61 @@ extern "C" int nt_support_stake_attributes(int N, int* out) {
   return launch_support(a, 1, nullptr, nullptr, out);
 }
 
-// One descending slot of the committee-sharded chain on a rank's Nb
-// columns of N (k ranks, k * Nb >= N): `out` [2][Nb] gets g and g & leader
-// from the gathered record `prev` [k][2][Nb] of the slot above (see
-// chain_step_block_kernel).
-extern "C" int nt_chain_step_block(const void* parent_up, const void* exists,
-                                   const void* leader, const void* prev,
-                                   const void* prev_lead, void* out, int N, int Nb,
-                                   int k, void* stream) {
-  if (N < 1 || N > 1024 || Nb < 1 || k < 1 || (int64_t)k * Nb < N)
-    return (int)cudaErrorInvalidValue;
-  const BlockStepArgs a{(const uint8_t*)parent_up, (const uint8_t*)exists,
-                        (const uint8_t*)leader,    (const uint8_t*)prev,
-                        (const uint8_t*)prev_lead, (uint8_t*)out,
-                        N,                         Nb};
-  chain_step_block_kernel<<<(Nb + kBlockStepThreads - 1) / kBlockStepThreads,
-                            kBlockStepThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// A slot's launch: block 0 and, at the top slot, the packing blocks,
+// warps / BWP row groups of 32 rows each.  The warps are a multiple of
+// BWP (a power of two, at most 32, so they stay at most 32), or the
+// packing blocks would leave row groups unpacked.  Launches, or with
+// `attrs` non-null only fills attrs[0..4] (launch_or_describe: then the
+// block size and the blocks).
+static int launch_slot(const SlotArgs& a, bool top, cudaStream_t st, int* attrs) {
+  const int bwp = ntw::nw_class(a.Nb), groups = a.W * ((a.N + 31) >> 5);
+  const int warps = (((max(a.N, a.Nb) + 31) >> 5) + bwp - 1) / bwp * bwp;
+  const int per_block = warps / bwp, threads = 32 * warps;
+  const int grid = 1 + (top ? (groups + per_block - 1) / per_block : 0);
+  switch (bwp) {
+#define NT_SLOT(B)                                                                      \
+  case B:                                                                               \
+    return launch_or_describe(commit_step_block_kernel<B>, grid, threads, 0, st, attrs, \
+                              {threads, grid}, a);
+    NT_SLOT(1) NT_SLOT(2) NT_SLOT(4) NT_SLOT(8) NT_SLOT(16) NT_SLOT(32)
+#undef NT_SLOT
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The support gate's votes on a rank's Nb columns: votes [N] from the
-// child slot's parent rows parent_s [N][Nb] and the leader's row [Nb].
-extern "C" int nt_support_votes_block(const void* parent_s, const void* leader,
-                                      void* votes, int N, int Nb, void* stream) {
-  if (N < 1 || N > 1024 || Nb < 1 || Nb > 1024) return (int)cudaErrorInvalidValue;
-  support_votes_block_kernel<<<(N + kVotesWarps - 1) / kVotesWarps, 32 * kVotesWarps, 0,
-                               (cudaStream_t)stream>>>(
-      (const uint8_t*)parent_s, (const uint8_t*)leader, (uint8_t*)votes, N, Nb);
-  return (int)cudaGetLastError();
+// Slot w (W-1 down to 0, or -1: the gate's own launch when W = 1) of the
+// committee-sharded commit step on rank `rank` of k, Nb columns of N:
+// `out` [R] gets the rank's record of the slot from the gathered record
+// `prev` [k][R] of the slot above (null at the top, w = W-1, whose launch
+// also packs `parent` into `packed` [W][SP] for the launches after it).
+// See commit_step_block_kernel.
+extern "C" int nt_commit_step_block(const void* parent, void* packed, const void* exists,
+                                    const void* leader, const void* is_lead,
+                                    const void* stake, const void* anchor,
+                                    const void* anchor_onehot, const void* prev, void* out,
+                                    int w, int W, int N, int Nb, int k, int rank, int SP,
+                                    void* stream) {
+  const bool top = w == W - 1;
+  if (N < 1 || N > 1024 || Nb < 1 || Nb > 1024 || k < 1 || (int64_t)k * Nb < N ||
+      rank < 0 || rank >= k || W < 1 || w < (W == 1 ? -1 : 0) || w >= W ||
+      top != (prev == nullptr) || SP < 4 || (SP & 3) != 0 ||
+      (int64_t)N * ntw::nw_class(Nb) > SP)
+    return (int)cudaErrorInvalidValue;
+  const SlotArgs a{(const uint8_t*)parent, (uint32_t*)packed,  (const uint8_t*)exists,
+                   (const uint8_t*)leader, (const uint8_t*)is_lead, (const int32_t*)stake,
+                   (const int32_t*)anchor, (const uint8_t*)anchor_onehot,
+                   (const int32_t*)prev,   (int32_t*)out,       w, W, N, Nb, k, rank * Nb, SP};
+  return launch_slot(a, top, (cudaStream_t)stream, nullptr);
+}
+
+// The launch of slot w (top: w = W - 1, whose launch also packs) at
+// (W, N, Nb), without launching: out[0..4] = registers, local (spill) and
+// static shared bytes per thread, block size, blocks.
+extern "C" int nt_commit_step_block_attributes(int top, int W, int N, int Nb, int* out) {
+  if (N < 1 || N > 1024 || Nb < 1 || Nb > 1024 || W < 1) return (int)cudaErrorInvalidValue;
+  SlotArgs a{};
+  a.W = W;
+  a.N = N;
+  a.Nb = Nb;
+  return launch_slot(a, top != 0, nullptr, out);
 }

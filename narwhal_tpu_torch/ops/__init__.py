@@ -46,8 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "causal_mask_scan": 0,
     "support_stake": 0,
     "commit_step": 0,
-    "chain_step_block": 0,
-    "support_votes_block": 0,
+    "commit_step_block": 0,
 }
 
 
@@ -60,6 +59,7 @@ _m_warmup_launches = {
     n: metrics.counter(f"kernel.warmup_launches.{n}") for n in LAUNCHES
 }
 _warming = threading.local()
+_capture = threading.local()
 
 
 def reset_launches() -> None:
@@ -78,6 +78,18 @@ def warming():
     finally:
         _warming.on = outer
 
+
+@contextlib.contextmanager
+def capturing():
+    """Tally, by kernel, the launches this thread captures into a CUDA
+    graph inside the block: they run, and are counted
+    (:func:`count_launches`), only when the graph replays."""
+    outer = getattr(_capture, "tally", None)
+    _capture.tally = tally = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield tally
+    finally:
+        _capture.tally = outer
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → the GPU.  Raises when the GPU is asked for and absent:
@@ -141,13 +153,28 @@ def kernel_fn(symbol: str, *argtypes):
 
 
 def check_launch(name: str, rc: int) -> None:
+    """Raise on a failed launch, else count it; a launch captured into a
+    CUDA graph goes to the tally of the enclosing :func:`capturing` block
+    instead, and one captured outside such a block raises."""
     if rc != 0:
         raise RuntimeError(
             f"narwhal_tpu_torch: launch of {name} failed with cudaError {rc}"
         )
-    LAUNCHES[name] += 1
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        count_launches(name, 1)
+        return
+    tally = getattr(_capture, "tally", None)
+    if tally is None:
+        raise RuntimeError(
+            f"narwhal_tpu_torch: launch of {name} captured outside ops.capturing()"
+        )
+    tally[name] += 1
+
+
+def count_launches(name: str, n: int) -> None:
+    LAUNCHES[name] += n
     warm = getattr(_warming, "on", False)
-    (_m_warmup_launches if warm else _m_launches)[name].inc()
+    (_m_warmup_launches if warm else _m_launches)[name].inc(n)
 
 
 def stream_handle(device: torch.device) -> int:

@@ -31,13 +31,13 @@ Four more take the window as bools, as the JAX programs do:
   ``leader_chain_scan`` traced as one program) in one launch: the chain
   scan's, with the support gate run beside the scan.
 
-Two more run the same commit step with the committee's columns split
+One more runs the same commit step with the committee's columns split
 over the ranks of a process group, as ``jax.jit`` of the step runs it
 over a ``committee`` mesh (:func:`commit_step_sharded`):
-:func:`chain_step_block`, one slot of the chain on a rank's block of
-columns, and :func:`support_votes_block`, the gate's votes on it; the
-ranks all-gather each slot's blocks and reduce the gate's votes and
-stake with ``torch.distributed``.
+:func:`commit_step_block`, one slot of the chain on a rank's block of
+columns with its part of the support gate; the ranks all-gather each
+slot's record with ``torch.distributed``, and on NCCL a step is one CUDA
+graph.
 
 Where the JAX programs donate their buffers, the port updates the
 window tensors in place.  Each wrapper launches its kernel for a CUDA
@@ -59,14 +59,16 @@ each against the leader's bit words.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import metrics
 from . import (
+    capturing,
     check_launch,
+    count_launches,
     kernel_fn,
     ptr,
     require,
@@ -524,74 +526,252 @@ def _frontier(prev, prev_lead, n: int):
 
 def chain_step_block_plain(parent_up_blk, exists_blk, leader_blk, prev, prev_lead,
                            *, out=None):
-    """Plain twin of :func:`chain_step_block`."""
+    """One descending slot w of the linked-leader chain on one rank's block
+    of Nb columns (cited parents) of N: from the slot above's gathered
+    (g, g & leader) blocks ``prev`` bool[k, 2, Nb] and its
+    ``is_leader_slot`` ``prev_lead`` (bool 0-d) the frontier (see
+    :func:`_frontier`), then g = (frontier · ``parent_up_blk`` bool[N,
+    Nb], parent[w + 1]'s columns) & ``exists_blk`` bool[Nb].  Returns
+    bool[2, Nb], (g_blk, g_blk & ``leader_blk``), in ``out`` when given.
+    A piece of :func:`commit_step_block_plain`."""
     frontier = _frontier(prev, prev_lead, parent_up_blk.shape[0])
     g = (frontier[:, None] & parent_up_blk).any(dim=0) & exists_blk
     res = torch.stack((g, g & leader_blk))
     return res if out is None else out.copy_(res)
 
 
-def chain_step_block(parent_up_blk, exists_blk, leader_blk, prev, prev_lead, *,
-                     out=None):
-    """One descending slot w of the linked-leader chain on one rank's block
-    of Nb columns (cited parents) of N, in one launch: from the slot
-    above's gathered record ``prev`` bool[k, 2, Nb] and its
-    ``is_leader_slot`` ``prev_lead`` (bool 0-d) the frontier (see
-    :func:`_frontier`), then g = (frontier · ``parent_up_blk``
-    bool[N, Nb], parent[w + 1]'s columns) & ``exists_blk`` bool[Nb].
-    Returns bool[2, Nb], (g_blk, g_blk & ``leader_blk``), in ``out`` when
-    given: this rank's part of slot w's record."""
-    if exists_blk.device.type == "cpu":
-        return chain_step_block_plain(parent_up_blk, exists_blk, leader_blk, prev,
-                                      prev_lead, out=out)
-    N, Nb = parent_up_blk.shape
-    k = prev.shape[0]
-    if N > 1024 or k * Nb < N:
-        raise ValueError(f"chain_step_block: N={N} in {k} blocks of {Nb}")
-    dev = resolve_device(exists_blk.device)
-    require(parent_up_blk, torch.bool, (N, Nb), dev, "chain_step_block parent_up_blk")
-    require(exists_blk, torch.bool, (Nb,), dev, "chain_step_block exists_blk")
-    require(leader_blk, torch.bool, (Nb,), dev, "chain_step_block leader_blk")
-    require(prev, torch.bool, (k, 2, Nb), dev, "chain_step_block prev")
-    require(prev_lead, torch.bool, (), dev, "chain_step_block prev_lead")
-    if out is None:
-        out = torch.empty((2, Nb), dtype=torch.bool, device=dev)
-    require(out, torch.bool, (2, Nb), dev, "chain_step_block out")
-    fn = kernel_fn("nt_chain_step_block", _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP)
-    rc = fn(ptr(parent_up_blk), ptr(exists_blk), ptr(leader_blk), ptr(prev),
-            ptr(prev_lead), ptr(out), N, Nb, k, _VP(stream_handle(dev)))
-    check_launch("chain_step_block", rc)
-    return out
-
-
 def support_votes_block_plain(parent_s_blk, leader_blk):
-    """Plain twin of :func:`support_votes_block`."""
+    """The f+1 gate's votes on one rank's block of columns: votes[i] = OR
+    over the block's columns j of ``parent_s_blk`` bool[N, Nb] (the child
+    slot's parent rows) [i, j] & ``leader_blk`` bool[Nb] [j].  Returns
+    bool[N]; the ranks' votes OR together.  A piece of
+    :func:`commit_step_block_plain`."""
     return (parent_s_blk & leader_blk[None, :]).any(dim=1)
 
 
-def support_votes_block(parent_s_blk, leader_blk):
-    """The f+1 gate's votes on one rank's block of columns, in one launch:
-    votes[i] = OR over the block's columns j of ``parent_s_blk`` bool[N,
-    Nb] (the child slot's parent rows) [i, j] & ``leader_blk`` bool[Nb]
-    [j].  Returns bool[N]; the ranks' votes OR together."""
-    if leader_blk.device.type == "cpu":
-        return support_votes_block_plain(parent_s_blk, leader_blk)
-    N, Nb = parent_s_blk.shape
-    if N > 1024 or Nb > 1024:
-        raise ValueError(f"support_votes_block: N={N}, Nb={Nb} > 1024")
-    dev = resolve_device(leader_blk.device)
-    require(parent_s_blk, torch.bool, (N, Nb), dev, "support_votes_block parent_s_blk")
-    require(leader_blk, torch.bool, (Nb,), dev, "support_votes_block leader_blk")
-    votes = torch.empty(N, dtype=torch.bool, device=dev)
-    fn = kernel_fn("nt_support_votes_block", _VP, _VP, _VP, _I, _I, _VP)
-    rc = fn(ptr(parent_s_blk), ptr(leader_blk), ptr(votes), N, Nb,
-            _VP(stream_handle(dev)))
-    check_launch("support_votes_block", rc)
-    return votes
+def _words(bits: int) -> int:
+    return -(-bits // 32)
+
+
+def record_words(n: int, nb: int) -> int:
+    """Words of one rank's record of a slot of the sharded step (n
+    authorities, nb columns a rank): g and g & leader on its columns, the
+    gate's votes on the n child rows, one int32 of partial support."""
+    return 2 * _words(nb) + _words(n) + 1
+
+
+def packed_words(window: int, n: int, nb: int) -> int:
+    """int32 words of the scratch into which the step's top launch packs a
+    rank's parent block: each row's nb bits in a power-of-two number of
+    words, each slot padded to 16 bytes."""
+    bwp = 1 << (_words(nb) - 1).bit_length()
+    return window * (-(-n * bwp // 4) * 4)
+
+
+def pack_bits(bits):
+    """bool[..., m] → int32[..., ceil(m / 32)]: bit j in word j // 32 at
+    position j % 32 (a ballot's order)."""
+    m = bits.shape[-1]
+    pad = torch.zeros(bits.shape[:-1] + (_words(m) * 32 - m,), dtype=torch.bool,
+                      device=bits.device)
+    lanes = torch.cat((bits, pad), -1).unflatten(-1, (_words(m), 32)).long()
+    word = (lanes << torch.arange(32, device=bits.device)).sum(-1)
+    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+
+
+def unpack_bits(words, m: int):
+    """int32[..., w] → bool[..., m], the inverse of :func:`pack_bits`."""
+    bit = (words.unsqueeze(-1) >> torch.arange(32, device=words.device, dtype=torch.int32)) & 1
+    return bit.bool().flatten(-2)[..., :m]
+
+
+def commit_step_block_plain(w: int, parent_blk, exists_blk, leader_blk, is_leader_slot,
+                            stake_blk, anchor, anchor_onehot, prev, packed=None, *,
+                            rank: int, k: int, out=None):
+    """Plain twin of :func:`commit_step_block` (``packed`` unused), from
+    :func:`chain_step_block_plain` and :func:`support_votes_block_plain`."""
+    W, N, Nb = parent_blk.shape
+    a, bw, vw = int(anchor), _words(Nb), _words(N)
+    lo = rank * Nb
+    own = max(0, min(N - lo, Nb))
+    dev = parent_blk.device
+    g = torch.zeros(Nb, dtype=torch.bool, device=dev)
+    gl = torch.zeros_like(g)
+    if 0 <= w == a:
+        g[:own] = anchor_onehot[lo : lo + own]
+    elif prev is not None and 0 <= w < a < W:
+        # The slot above's g & leader is written only where it may lead,
+        # so the chain's reset is "where any of it is set".
+        halves = torch.stack([unpack_bits(prev[:, h * bw : (h + 1) * bw], Nb)
+                              for h in (0, 1)], 1)
+        g, gl = chain_step_block_plain(parent_blk[w + 1], exists_blk[w], leader_blk[w],
+                                       halves, torch.tensor(True, device=dev))
+        if not bool(is_leader_slot[w]):
+            gl = torch.zeros_like(g)
+    votes = torch.zeros(N, dtype=torch.bool, device=dev)
+    if w == W - 1:
+        votes = support_votes_block_plain(parent_blk[_support_slot(a - 2, W)],
+                                          leader_blk[_leader_row(a, W)])
+    support = torch.zeros(1, dtype=torch.int32, device=dev)
+    if w == (W - 2 if W >= 2 else -1):
+        s = _support_slot(a - 2, W)
+        voted = unpack_bits(prev[:, 2 * bw : 2 * bw + vw], N).any(0)[lo : lo + own]
+        mine = voted & exists_blk[s, :own]
+        support = torch.where(mine, stake_blk[:own], 0).sum(dtype=torch.int32).reshape(1)
+    res = torch.cat((pack_bits(g), pack_bits(gl), pack_bits(votes), support))
+    return res if out is None else out.copy_(res)
+
+
+def commit_step_block(w: int, parent_blk, exists_blk, leader_blk, is_leader_slot,
+                      stake_blk, anchor, anchor_onehot, prev, packed, *, rank: int, k: int,
+                      out=None):
+    """Slot ``w`` of the committee-sharded commit step on rank ``rank`` of
+    ``k``, in one launch, as the JAX scan steps it.  The rank holds Nb
+    columns of N: ``parent_blk`` bool[W, N, Nb], ``exists_blk`` and
+    ``leader_blk`` bool[W, Nb], ``stake_blk`` int32[Nb]; ``is_leader_slot``
+    bool[W], ``anchor`` int32 0-d (the anchor slot, read on the card) and
+    ``anchor_onehot`` bool[N] are whole.
+
+    Returns int32[R] (:func:`record_words`), in ``out`` when given: this
+    rank's record of slot w — g on its columns (at the anchor its block of
+    ``anchor_onehot``; below an anchor inside the window the parents of
+    the frontier, rebuilt from ``prev`` int32[k, R], every rank's record
+    of slot w + 1, that exist; else empty), g & leader where slot w may
+    lead (``is_leader_slot[w]``, w below the anchor), the gate's votes
+    (top slot w = W - 1 only) and the stake of this rank's voters (slot
+    W - 2, from the votes in ``prev``; for W = 1 a launch of its own at
+    w = -1), the gate's child slot and leader row resolved as JAX resolves
+    a traced index.  ``prev`` is None at the top slot, whose launch also
+    packs ``parent_blk`` into ``packed`` int32[:func:`packed_words`] for
+    the slots below it: the caller keeps ``packed`` through one step."""
+    if parent_blk.device.type == "cpu":
+        return commit_step_block_plain(w, parent_blk, exists_blk, leader_blk,
+                                       is_leader_slot, stake_blk, anchor, anchor_onehot,
+                                       prev, packed, rank=rank, k=k, out=out)
+    W, N, Nb = parent_blk.shape
+    R = record_words(N, Nb)
+    if N > 1024 or Nb > 1024 or k * Nb < N or not 0 <= rank < k:
+        raise ValueError(f"commit_step_block: N={N} in {k} blocks of {Nb}, rank {rank}")
+    if (prev is None) != (w == W - 1) or not (-1 if W == 1 else 0) <= w < W:
+        raise ValueError(f"commit_step_block: slot {w} of {W}, prev {prev is not None}")
+    dev = resolve_device(parent_blk.device)
+    require(parent_blk, torch.bool, (W, N, Nb), dev, "commit_step_block parent_blk")
+    require(exists_blk, torch.bool, (W, Nb), dev, "commit_step_block exists_blk")
+    require(leader_blk, torch.bool, (W, Nb), dev, "commit_step_block leader_blk")
+    require(is_leader_slot, torch.bool, (W,), dev, "commit_step_block is_leader_slot")
+    require(stake_blk, torch.int32, (Nb,), dev, "commit_step_block stake_blk")
+    require(anchor, torch.int32, (), dev, "commit_step_block anchor")
+    require(anchor_onehot, torch.bool, (N,), dev, "commit_step_block anchor_onehot")
+    require(packed, torch.int32, (packed_words(W, N, Nb),), dev, "commit_step_block packed")
+    if prev is not None:
+        require(prev, torch.int32, (k, R), dev, "commit_step_block prev")
+    if out is None:
+        out = torch.empty(R, dtype=torch.int32, device=dev)
+    require(out, torch.int32, (R,), dev, "commit_step_block out")
+    fn = kernel_fn("nt_commit_step_block", _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                   _VP, _I, _I, _I, _I, _I, _I, _I, _VP)
+    rc = fn(ptr(parent_blk), ptr(packed), ptr(exists_blk), ptr(leader_blk),
+            ptr(is_leader_slot), ptr(stake_blk), ptr(anchor), ptr(anchor_onehot),
+            _VP(0) if prev is None else ptr(prev), ptr(out), int(w), W, N, Nb, k, rank,
+            packed.numel() // W, _VP(stream_handle(dev)))
+    check_launch("commit_step_block", rc)
+    return out
+
+
+def _step_slots(window: int) -> List[int]:
+    """The slots a sharded step launches, in order: W - 1 down to 0, and
+    for W = 1 the gate's own launch, -1."""
+    return list(range(window - 1, -1, -1)) + ([-1] if window == 1 else [])
+
+
+def _sharded_step(group, args, rec, send, packed, *, rank: int, k: int, n: int):
+    """Enqueue one sharded step on ``args`` (the inputs of
+    :func:`commit_step_sharded`, the anchor an int32 0-d tensor): a
+    :func:`commit_step_block` launch and a gather of the ranks' records a
+    slot into ``rec`` [L, k, R] (slot w at row w; the gate's own launch of
+    W = 1 at row 1), then the result read off ``rec`` with no host
+    synchronisation."""
+    import torch.distributed as dist
+
+    parent_blk = args[0]
+    W, _, nb = parent_blk.shape
+    bw = _words(nb)
+    nccl = dist.get_backend(group) == "nccl"
+    for i, w in enumerate(_step_slots(W)):
+        row = w if w >= 0 else W
+        prev = None if i == 0 else rec[w + 1 if w >= 0 else 0]
+        commit_step_block(w, *args, prev, packed, rank=rank, k=k, out=send[row])
+        if nccl:
+            dist.all_gather_into_tensor(rec[row], send[row], group=group)
+        else:
+            # gloo: the list form, which it takes on card and CPU alike.
+            dist.all_gather(list(rec[row].unbind(0)), send[row], group=group)
+    gate = W - 2 if W >= 2 else W
+    support = rec[gate, :, -1].sum(dtype=torch.int32)
+    committed = (rec[:W, :, bw : 2 * bw] != 0).flatten(1).any(1)
+    reach = unpack_bits(rec[:W, :, :bw], nb).reshape(W, k * nb)[:, :n].contiguous()
+    return support, committed, reach
+
+
+class _StepGraph:
+    """One rank's sharded step captured as a CUDA graph: W
+    :func:`commit_step_block` launches, W ``all_gather_into_tensor`` calls
+    into a preallocated record and the final reads, on static buffers.
+    Built with an eager warm-up step (which also initialises the NCCL
+    communicator) and then the capture; a capture or replay that fails
+    raises.  ``launches`` holds the kernel launches the capture took, which
+    each replay adds to the launch counts; ``replays`` counts the
+    replays."""
+
+    def __init__(self, group, args, *, rank: int, k: int, n: int) -> None:
+        W, _, nb = args[0].shape
+        dev = args[0].device
+        self.static = [t.clone() for t in args]
+        R = record_words(n, nb)
+        rows = W + (W == 1)
+        self.rec = torch.zeros((rows, k, R), dtype=torch.int32, device=dev)
+        self.send = torch.zeros((rows, R), dtype=torch.int32, device=dev)
+        self.packed = torch.empty(packed_words(W, n, nb), dtype=torch.int32, device=dev)
+        step = (group, self.static, self.rec, self.send, self.packed)
+        kw = dict(rank=rank, k=k, n=n)
+        _sharded_step(*step, **kw)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with capturing() as tally, torch.cuda.graph(self.graph,
+                                                    capture_error_mode="thread_local"):
+            self.out = _sharded_step(*step, **kw)
+        self.launches = {name: n for name, n in tally.items() if n}
+        self.replays = 0
+
+    def __call__(self, args):
+        for dst, src in zip(self.static, args):
+            dst.copy_(src)
+        self.graph.replay()
+        self.replays += 1
+        for name, n in self.launches.items():
+            count_launches(name, n)
+        return self.out
+
+
+_GRAPHS: Dict[tuple, _StepGraph] = {}
+
+
+def graph_replays() -> int:
+    """Replays of every captured sharded step so far, in this process."""
+    return sum(step.replays for step in _GRAPHS.values())
+
+
+def step_runs_as_graph(group, device) -> bool:
+    """Whether :func:`commit_step_sharded` runs a step on ``device`` over
+    ``group`` as a CUDA graph: on a card with the ``nccl`` backend."""
+    import torch.distributed as dist
+
+    return torch.device(device).type == "cuda" and dist.get_backend(group) == "nccl"
 
 
 def commit_step_sharded(group, parent_blk, exists_blk, leader_blk, is_leader_slot,
-                        stake_blk, anchor_slot: int, anchor_onehot, *, n: int):
+                        stake_blk, anchor_slot, anchor_onehot, *, n: int,
+                        graph: Optional[bool] = None):
     """The flagship commit step with the committee's columns split over the
     k ranks of the process group ``group`` (None: the default group), as
     ``jax.jit`` of ``__graft_entry__.make_commit_step`` runs it over a
@@ -599,18 +779,25 @@ def commit_step_sharded(group, parent_blk, exists_blk, leader_blk, is_leader_slo
     cited-parent axis, Nb = ceil(n / k), the last block padded with
     columns that do not exist and hold no stake: ``parent_blk`` bool[W,
     n, Nb], ``exists_blk`` and ``leader_blk`` bool[W, Nb], ``stake_blk``
-    int32[Nb]; ``is_leader_slot`` bool[W] and ``anchor_onehot`` bool[n] are
-    whole on every rank.  No rank holds the whole window.
+    int32[Nb]; ``is_leader_slot`` bool[W], ``anchor_slot`` (an int or an
+    int32 0-d tensor) and ``anchor_onehot`` bool[n] are whole on every
+    rank.  No rank holds the whole window.
 
     Returns (support 0-d int32, committed bool[W], reach bool[W, n]), the
     same on every rank and equal to :func:`commit_step_fused` on the whole
-    window.  The gate is one :func:`support_votes_block` launch, an
-    OR-reduce of its votes and a sum-reduce of the stake of this rank's
-    voters; the chain is, for each slot below the anchor (the frontier is
-    empty above it, and is the anchor at it), one :func:`chain_step_block`
-    launch and one all-gather of its (g, g & leader) blocks, after which
-    every rank holds the whole frontier.  Nothing waits on the host inside
-    the slot loop, so a step on NCCL is enqueued whole."""
+    window at every anchor.  A step follows the JAX scan: one
+    :func:`commit_step_block` launch and one all-gather of the ranks'
+    records a slot, W of each whatever the anchor (W = 1 adds the gate's
+    own launch and gather), and no reduction collective; nothing waits on
+    the host.
+
+    On a card with the ``nccl`` backend the step runs as one CUDA graph,
+    captured on the first call of each (W, n, k, group) after an eager
+    warm-up step; each call copies its inputs into the graph's buffers and
+    replays it, and the returned tensors are the graph's outputs, which the
+    next call of that shape overwrites.  With ``gloo`` (the CPU, or ranks
+    that share a card) the same sequence runs eagerly.  ``graph=False``
+    runs a NCCL step eagerly too (for timing the two side by side)."""
     import torch.distributed as dist
 
     dev = resolve_device(parent_blk.device)
@@ -619,32 +806,29 @@ def commit_step_sharded(group, parent_blk, exists_blk, leader_blk, is_leader_slo
     if N != n or Nb != -(-n // k):
         raise ValueError(f"commit_step_sharded: parent block {tuple(parent_blk.shape)} "
                          f"is not n={n} over {k} ranks")
-    lo = rank * Nb
-    own = max(0, min(n - lo, Nb))  # this rank's columns that exist
-    # The f+1 gate: the child slot and the leader's row resolved as JAX
-    # resolves a traced index.
-    s, row = _support_slot(anchor_slot - 2, W), _leader_row(anchor_slot, W)
-    votes = support_votes_block(parent_blk[s], leader_blk[row])
-    dist.all_reduce(votes.view(torch.uint8), op=dist.ReduceOp.MAX, group=group)
-    mine = votes[lo : lo + own] & exists_blk[s, :own]
-    support = torch.where(mine, stake_blk[:own], 0).sum(dtype=torch.int32).reshape(1)
-    dist.all_reduce(support, group=group)
-    # The chain: rec[w] is slot w's gathered (g, g & leader), rank by rank.
-    rec = torch.zeros((W, k, 2, Nb), dtype=torch.bool, device=dev)
-    if 0 <= anchor_slot < W:
-        anchor = torch.zeros(k * Nb, dtype=torch.bool, device=dev)
-        anchor[:n] = anchor_onehot
-        rec[anchor_slot, :, 0] = anchor.view(k, Nb)
-        send = torch.empty((W, 2, Nb), dtype=torch.bool, device=dev)
-        for w in range(anchor_slot - 1, -1, -1):
-            chain_step_block(parent_blk[w + 1], exists_blk[w], leader_blk[w], rec[w + 1],
-                             is_leader_slot[w + 1], out=send[w])
-            dist.all_gather(list(rec[w].view(torch.uint8).unbind(0)),
-                            send[w].view(torch.uint8), group=group)
-    g, gl = (rec[:, :, h].reshape(W, k * Nb)[:, :n] for h in (0, 1))
-    below = torch.arange(W, device=dev) < anchor_slot
-    committed = is_leader_slot & below & gl.any(dim=1)
-    return support.reshape(()), committed, g.contiguous()
+    can_graph = step_runs_as_graph(group, dev)
+    if graph is None:
+        graph = can_graph
+    elif graph and not can_graph:
+        raise ValueError("commit_step_sharded: a CUDA graph needs the nccl backend on a card")
+    # An int anchor becomes a fill on the card, not a copy from the host.
+    anchor = (anchor_slot.to(device=dev, dtype=torch.int32)
+              if isinstance(anchor_slot, torch.Tensor)
+              else torch.full((), int(anchor_slot), dtype=torch.int32, device=dev))
+    args = (parent_blk, exists_blk, leader_blk, is_leader_slot, stake_blk, anchor,
+            anchor_onehot)
+    kw = dict(rank=rank, k=k, n=n)
+    if not graph:
+        R, rows = record_words(n, Nb), W + (W == 1)
+        rec = torch.zeros((rows, k, R), dtype=torch.int32, device=dev)
+        send = torch.zeros((rows, R), dtype=torch.int32, device=dev)
+        packed = torch.empty(packed_words(W, n, Nb), dtype=torch.int32, device=dev)
+        return _sharded_step(group, args, rec, send, packed, **kw)
+    key = (W, n, k, dist.group.WORLD if group is None else group, dev)
+    step = _GRAPHS.get(key)
+    if step is None:
+        step = _GRAPHS[key] = _StepGraph(group, args, **kw)
+    return step(args)
 
 
 # -------------------------------------------------------------------- KernelTusk

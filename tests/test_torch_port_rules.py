@@ -25,6 +25,7 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "window_ab.py")
+    yield os.path.join(ROOT, "sharded_ab.py")
 
 
 def test_no_jax_or_reference_imports_in_the_source():
@@ -559,9 +560,8 @@ def test_entry_points_raise_without_a_card(no_card):
     from narwhal_tpu_torch.config import Committee
     from narwhal_tpu_torch.ops.reachability import (
         KernelTusk,
-        chain_step_block,
+        commit_step_block,
         commit_step_sharded,
-        support_votes_block,
     )
 
     from tests.common import committee
@@ -594,7 +594,7 @@ def test_entry_points_raise_without_a_card(no_card):
     # device="cpu" is the caller's own choice, and runs the plain twin.
     assert resolve_device("cpu").type == "cpu"
     # The sharded commit step: its ranks go to the card unless the caller
-    # names the CPU, and a tensor on the card launches the block kernels or
+    # names the CPU, and a tensor on the card launches the slot kernel or
     # raises (without a card, stand-ins for such tensors raise before any
     # collective).
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -609,11 +609,11 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         commit_step_sharded(None, blk, on_card(16, 4), on_card(16, 4), on_card(16),
                             on_card(4), 14, on_card(16), n=16)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        chain_step_block(on_card(16, 4), on_card(4), on_card(4), on_card(4, 2, 4),
-                         on_card())
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        support_votes_block(on_card(16, 4), on_card(4))
+    for w, prev in ((15, None), (14, on_card(4, 4))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            commit_step_block(w, blk, on_card(16, 4), on_card(16, 4), on_card(16),
+                              on_card(4), on_card(), on_card(16), prev, on_card(64),
+                              rank=0, k=4)
 
 
 def test_kernel_rule_stays_classic_only():
@@ -644,6 +644,13 @@ def test_chip_smoke_refuses_without_card_or_checkout(no_card, tmp_path):
 
 def test_window_ab_refuses_without_card(no_card, tmp_path):
     out = subprocess.run([sys.executable, os.path.join(ROOT, "window_ab.py"), ROOT],
+                         capture_output=True, text=True, timeout=240, cwd=str(tmp_path))
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_sharded_ab_refuses_without_card(no_card, tmp_path):
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "sharded_ab.py"), ROOT],
                          capture_output=True, text=True, timeout=240, cwd=str(tmp_path))
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
