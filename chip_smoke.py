@@ -4,7 +4,9 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (the window
 scans also with rows of several words and in chunks of slots, the
-verifier's batch split against its single launch, and the verifier, the
+verifier's staged launcher against its single launch (the batch split
+over two shards, and its one-shard case at B = 2048 and 16,384, each
+shard on its own stream from a pinned buffer), and the verifier, the
 commit scan and the ring update at the ``committee`` phase's burst pads
 and window), then drives three
 paths in this process, each with the launch counts set to 0 just before
@@ -113,6 +115,16 @@ SPIN_CYCLES_PER_CALL = 200_000
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def compute_mode() -> str:
+    """The card's compute mode (``Default``, or ``Exclusive_Process`` under
+    MPS), beside the figures of phases that share it among processes."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
 
 
 def nvidia_smi_line() -> str:
@@ -475,6 +487,131 @@ class LiveWindowCheck:
 # ------------------------------------------------------------------ phases
 
 
+def verify_route(E, arrays, devices, want) -> dict:
+    """The staged launcher (``verify_sharded``) over ``devices`` on the
+    nine prep arrays ``arrays``, against the single launch's mask
+    ``want``: one launch a shard, each on a stream of its own that is not
+    its card's default stream (read off the launch itself, through
+    ``stream_handle``), a pinned staging buffer; then the whole call's
+    time by events and on the host, each shard's copy in, kernel and
+    copy out by the launcher's own events, averaged over the timed calls,
+    and the host ms of the same launches alone."""
+    import torch
+
+    from narwhal_tpu_torch.ops import LAUNCHES
+
+    launched = []
+    stream_handle = E.stream_handle
+
+    def seen(dev):
+        handle = stream_handle(dev)
+        launched.append((dev, handle))
+        return handle
+
+    report = []
+    before = LAUNCHES["ed25519_verify"]
+    E.stream_handle = seen
+    try:
+        got = E.verify_sharded(arrays, devices, report=report)
+    finally:
+        E.stream_handle = stream_handle
+    launches = LAUNCHES["ed25519_verify"] - before
+    assert launches == len(devices) == len(launched) == len(report), (
+        launches, len(launched), len(report))
+    defaults = {torch.cuda.default_stream(d).cuda_stream for d in devices}
+    streams = [h for _, h in launched]
+    assert len(set(streams)) == len(devices), streams
+    assert not set(streams) & defaults, (streams, defaults)
+    assert streams == [r["stream"] for r in report], (streams, report)
+    assert all(r["pinned"] for r in report), report
+    m1 = int((got != want).sum())
+    timed = []
+
+    def call():
+        return E.verify_sharded(arrays, devices, report=timed)
+
+    def mean(key, k):
+        picked = [r[key] for r in timed[k :: len(devices)]]
+        return sum(picked) / len(picked)
+
+    rows = int(arrays[0].shape[0])
+    step = rows // len(devices)
+    streams = [torch.cuda.Stream(d) for d in devices]
+    parts = [E.to_device([a[k * step : (k + 1) * step] for a in arrays], d)
+             for k, d in enumerate(devices)]
+
+    def launches_alone():
+        # The floor under the call: the same launches on streams of their
+        # own from tensors already on the card, no fill and no copies.
+        for s, d, part in zip(streams, devices, parts):
+            with torch.cuda.device(d), torch.cuda.stream(s):
+                E.verify_kernel(*part)
+        for s in streams:
+            s.synchronize()
+
+    return dict(
+        launcher="verify_sharded",
+        replaces=("narwhal_tpu/ops/ed25519.py:387" if len(devices) > 1
+                  else "narwhal_tpu/ops/ed25519.py:442"),
+        rows=rows, shards=len(devices), cards=len({d.index for d in devices}),
+        mismatches=m1, max_abs_err=float(m1 > 0), check_launches=launches,
+        pinned=True, own_streams=True,
+        # Events on the default stream around the whole call: the
+        # launcher waits for its shards before it returns, so this holds
+        # the host fill, both copies, the launches and the wait.
+        ms=cuda_ms(call, 10),
+        host_ms_per_call=host_ms(call, 10),
+        launches_alone_host_ms=host_ms(launches_alone, 10),
+        shards_ms=[{key: mean(key, k) for key in ("copy_in_ms", "kernel_ms", "copy_out_ms")}
+                   for k in range(len(devices))],
+        staged_bytes_per_shard=E.stage_layout(step)[1],
+    )
+
+
+def stage_host_ms(E, rows) -> dict:
+    """Host ms of filling a pinned staging buffer at the node's burst pads
+    and at B = 2048: the host prep alone, and the prep then its copy into
+    the buffer's views (what a verify does before its copy in), in turns
+    (prep, prep and copy, prep and copy, prep); beside them the copy
+    alone."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for pad in (16, 32, 64, VERIFY_BATCH):
+        cols = list(zip(*rows[:pad]))
+        buf = torch.empty(E.stage_layout(pad)[1], dtype=torch.uint8, pin_memory=True)
+        views = [v.numpy() for v in E.stage_views(buf, pad)]
+        arrays = E.prepare_batch(*cols, pad)
+        iters = 5 if pad >= VERIFY_BATCH else 100
+
+        def prep():
+            E.prepare_batch(*cols, pad)
+
+        def prep_and_copy():
+            for dst, src in zip(views, E.prepare_batch(*cols, pad)):
+                np.copyto(dst, src)
+
+        def copy_alone():
+            for dst, src in zip(views, arrays):
+                np.copyto(dst, src)
+
+        times = {"prep": [], "prep_and_copy": []}
+        for name in ("prep", "prep_and_copy", "prep_and_copy", "prep"):
+            fn = prep if name == "prep" else prep_and_copy
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            times[name].append(1000 * (time.perf_counter() - t0) / iters)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            copy_alone()
+        out[f"b{pad}"] = dict(prep_ms=times["prep"],
+                              prep_then_copy_ms=times["prep_and_copy"],
+                              copy_alone_ms=1000 * (time.perf_counter() - t0) / iters)
+    return out
+
+
 def phase_kernels(dag, keys, device, rng):
     """Each kernel against its plain version on the card, exactly; times
     at the main path's shapes.  Returns the per-kernel records."""
@@ -796,31 +933,21 @@ def phase_kernels(dag, keys, device, rng):
     #    every slot of the multichip phase's cases
     records.update(block_records(device))
 
-    # -- the verifier's batch split (the reference's NARWHAL_VERIFY_MESH
-    #    path) against the single launch, on the same B = 2048 rows
-    routes = []
-    cards = torch.cuda.device_count()
-    splits = [[device, device]]
-    if cards > 1:
-        splits.append([torch.device("cuda", k) for k in range(cards)])
-    for devices in splits:
-        before = dict(LAUNCHES)
-        split = E.verify_sharded(args, devices)
-        torch.cuda.synchronize()
-        launches = LAUNCHES["ed25519_verify"] - before["ed25519_verify"]
-        assert launches == len(devices), launches
-        m1 = int((split != mask).sum())
-        routes.append(dict(
-            launcher="verify_sharded",
-            replaces="narwhal_tpu/ops/ed25519.py:387",
-            shards=len(devices), cards=len({d.index for d in devices}),
-            mismatches=m1, max_abs_err=float(m1 > 0), check_launches=launches,
-            # Events around the whole call: the shards' launches and the
-            # copies of their masks to the host.
-            ms=cuda_ms(lambda: E.verify_sharded(args, devices), 10),
-            host_ms_per_call=host_ms(lambda: E.verify_sharded(args, devices), 10),
-        ))
-    records["ed25519_verify"]["extra"]["routes"] = routes
+    # -- the staged launcher (row 8): the batch split (the reference's
+    #    NARWHAL_VERIFY_MESH path) over two shards on this card, and over
+    #    every card where there are several, against the single launch on
+    #    the same B = 2048 rows; and its one-shard case, the single-card
+    #    verify, at B = 2048 and 16,384
+    records["ed25519_verify"]["extra"]["routes"] = [
+        verify_route(E, prep, devices, mask)
+        for devices in ([device, device], *(
+            [[torch.device("cuda", k) for k in range(torch.cuda.device_count())]]
+            if torch.cuda.device_count() > 1 else []))]
+    tiled_np = [np.concatenate([a] * 8, axis=0) for a in prep]
+    records["ed25519_verify"]["extra"]["routes"] += [
+        verify_route(E, prep, [device], mask),
+        verify_route(E, tiled_np, [device], got16.cpu().numpy())]
+    records["ed25519_verify"]["extra"]["stage_host_ms"] = stage_host_ms(E, rows)
 
     # -- the committee phase's shapes: the verifier at every burst pad its
     #    nodes warm, the scan and the ring update at its window (N = 10)
@@ -1988,6 +2115,9 @@ NODE_CAP_S = 150.0  # from the first node's start to the last exit
 NODE_MIN_LEADERS = 20
 NODE_WORKDIR = os.path.join(HERE, "build", "node_phase")
 NODE_KERNELS = ("ed25519_verify", "window_update", "leader_commit_scan")
+# The profiler's label of the frame that enqueues a verify's staged copy
+# in, launch and copy out (ops/ed25519.py::stage_shard).
+COPY_FRAME = "ed25519.py:stage_shard"
 # The boot lines each process logs once it is ready (the reference's own:
 # node/node.py and primary.py / worker.py).
 BOOTED = "successfully booted"
@@ -2581,6 +2711,15 @@ def phase_node():
             # its threads spent the most samples in, idle waits left out.
             profile_top=[(f["frame"], f["self_frac"])
                          for f in (snap["detail"].get("profile.top") or [])[:4]],
+            # The verify launcher's frames among its top 25: the staged
+            # copy in and the launch are enqueued in COPY_FRAME, the wait
+            # on the mask is in verify_sharded (as the profiler sees it,
+            # torch's streams.py:synchronize), and to_device (the nine
+            # pageable copies before the staged launcher) must be gone.
+            copy_frame=COPY_FRAME,
+            verify_frames={f["frame"]: f["self_frac"]
+                           for f in (snap["detail"].get("profile.top") or [])
+                           if f["frame"].startswith("ed25519.py:")},
         ))
     result = dict(
         phase="node", committee=NODE_N, workers_per_authority=1,
@@ -2588,7 +2727,7 @@ def phase_node():
         tx_size=NODE_TX_SIZE, load_s=NODE_LOAD_S, host_cpus=os.cpu_count(),
         processes=run["processes"], prewarm_s=run["prewarm_s"],
         boot_s=run["boot_s"], wall_s=run["wall_s"], seconds=run["seconds"],
-        nvidia_smi=nvidia_smi_line(), **ports,
+        nvidia_smi=nvidia_smi_line(), compute_mode=compute_mode(), **ports,
         node_bursts=sum(p["kernel_timed_bursts"] for p in per_primary),
         node_dispatches=sum(p["kernel_dispatches"] for p in per_primary),
         node_launches={k: sum(p["launches"][k] for p in per_primary)
@@ -3124,7 +3263,7 @@ def main() -> int:
         for name, r in records.items()
     ]})
     bad = {n: r["mismatches"] for n, r in records.items() if r["mismatches"]}
-    bad.update({f"verify_sharded x{r['shards']}": r["mismatches"]
+    bad.update({f"{r['launcher']} x{r['shards']} B={r['rows']}": r["mismatches"]
                 for r in records["ed25519_verify"]["extra"]["routes"]
                 if r["mismatches"]})
     if bad:
@@ -3184,7 +3323,7 @@ def main() -> int:
              **{k: r["extra"][k] for k in (
                  "ms_b16384", "ms_b16", "ms_b32", "registers_per_thread",
                  "local_bytes_per_thread",
-                 "launch_b2048")}}
+                 "launch_b2048", "stage_host_ms")}}
             if name == "ed25519_verify" else {}),
          **({k: r["extra"][k] for k in ("launch_w64_n50", "cycles_w64_n50", "shapes",
                                         "registers_by_n")}

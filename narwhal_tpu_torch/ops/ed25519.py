@@ -19,15 +19,20 @@ mod L, checked as projective point equality.
 
 SHA-512(R‖A‖M) and the scalar window decomposition run on the host during
 batch prep (:func:`prepare_batch`, numpy); every field and curve
-operation runs on the device.
+operation runs on the device.  A batch reaches the card through the
+staged launcher (:func:`verify_sharded`): the prep copied into one pinned
+buffer, one copy in, the launch and one copy of the mask out on a stream
+of the shard's own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import math
 import threading
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -315,6 +320,23 @@ def verify_kernel(a_y, a_sign, a_canon, r_y, r_sign, r_canon, s_windows,
 # the verifier over a 1-D mesh of every visible device): the verifier is
 # elementwise over the batch, so the split is one equal contiguous shard
 # per card, each one launch of the verifier kernel on its own card.
+#
+# Every verify on the card, split or not, goes through the one launcher
+# below, verify_sharded (row 8 of PERF.md, redesigned for Hopper); the
+# single-card verify is its one-shard case.  A shard of S rows travels as
+# the nine prep arrays packed into one uint8 buffer (stage_layout):
+# pinned on the host, its twin on the card.  Per (card, shard slot) the
+# launcher keeps both buffers, a pinned mask and a stream of its own for
+# the process's life.  It enqueues every shard before it waits on any:
+# the shard's copy into the pinned buffer, then on its stream one
+# asynchronous copy in, the launch and one asynchronous copy of the mask
+# out.  So two shards on one card run side by side (at B = 2048 the
+# kernel takes one of an SM's six block slots), k cards use their copy
+# engines and SMs at once, and a batch costs one copy each way and one
+# wait, not nine pageable copies and a blocking fetch.  The copies move
+# 779 bytes a row in and one byte out: at B = 2048 ~0.06 ms in on an
+# H100 beside the kernel's ~0.48 ms (PERF.md, row 8), so what is left
+# above the kernel is the host's fill and enqueue.
 
 
 def mesh_devices() -> int:
@@ -325,12 +347,146 @@ def mesh_devices() -> int:
     return torch.cuda.device_count()
 
 
-def verify_sharded(arrays, devices) -> np.ndarray:
+# The nine prep arrays in the kernel's argument order: name, element
+# type, shape of one row.
+STAGED = (
+    ("a_y", torch.int32, (32,)),
+    ("a_sign", torch.int32, ()),
+    ("a_canon", torch.bool, ()),
+    ("r_y", torch.int32, (32,)),
+    ("r_sign", torch.int32, ()),
+    ("r_canon", torch.bool, ()),
+    ("s_windows", torch.int32, (64,)),
+    ("s_ok", torch.bool, ()),
+    ("k_windows", torch.int32, (64,)),
+)
+# Each segment starts on a 16-byte boundary: an int32 view of a uint8
+# slice needs an offset divisible by 4, and 16 keeps each segment's copy
+# in whole sectors.
+STAGE_ALIGN = 16
+
+
+def _segment_bytes(rows: int, dtype, shape) -> int:
+    return rows * dtype.itemsize * math.prod(shape)
+
+
+def stage_layout(rows: int) -> Tuple[List[int], int]:
+    """The byte offsets of the nine segments of a shard of ``rows`` rows
+    in its staging buffer, in the kernel's argument order, and the
+    buffer's size: 779 bytes a row, each segment rounded up to
+    ``STAGE_ALIGN``."""
+    offsets, end = [], 0
+    for _, dtype, shape in STAGED:
+        offsets.append(end)
+        size = _segment_bytes(rows, dtype, shape)
+        end += -(-size // STAGE_ALIGN) * STAGE_ALIGN
+    return offsets, end
+
+
+def stage_views(buf: torch.Tensor, rows: int) -> List[torch.Tensor]:
+    """The nine arrays of a shard of ``rows`` rows as views of the uint8
+    buffer ``buf`` (host or card), laid out by :func:`stage_layout`."""
+    offsets, _ = stage_layout(rows)
+    return [
+        buf[off : off + _segment_bytes(rows, dtype, shape)]
+        .view(dtype).view(rows, *shape)
+        for off, (_, dtype, shape) in zip(offsets, STAGED)
+    ]
+
+
+def _copy_into(views, arrays) -> None:
+    for dst, src in zip(views, arrays):
+        np.copyto(dst, src)
+
+
+class _Stage:
+    """One shard slot's staging on one card, kept for the process's life:
+    the pinned host buffer, its twin on the card (allocated under the
+    slot's stream, so the caching allocator never hands it to another
+    stream), the pinned mask, the stream, and four timing events (before
+    the copy in, the launch and the copy out, and after it).  The buffers
+    grow by doubling to the largest shard seen and never shrink, so
+    ``cudaHostAlloc`` runs only when one grows.  ``lock`` is held from
+    the host fill to the wait on the mask."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.lock = threading.Lock()
+        self.stream = torch.cuda.Stream(device)
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        self.rows = 0
+        self.host = self.card = self.mask = None
+        self._views: Dict[int, tuple] = {}
+
+    def views(self, rows: int) -> tuple:
+        """(the host buffer's nine numpy views, the card buffer's nine
+        tensor views, the staged range of each buffer) for a shard of
+        ``rows`` rows, grown into first; made once per size and buffer
+        (making them costs ~0.1 ms)."""
+        if rows > self.rows:
+            cap = max(1, self.rows)
+            while cap < rows:
+                cap <<= 1
+            size = stage_layout(cap)[1]
+            self.host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            self.mask = torch.empty(cap, dtype=torch.bool, pin_memory=True)
+            with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+                self.card = torch.empty(size, dtype=torch.uint8, device=self.device)
+            self.rows = cap
+            self._views.clear()
+        got = self._views.get(rows)
+        if got is None:
+            size = stage_layout(rows)[1]
+            got = self._views[rows] = (
+                [v.numpy() for v in stage_views(self.host, rows)],
+                stage_views(self.card, rows),
+                self.host[:size],
+                self.card[:size],
+            )
+        return got
+
+
+_stages: Dict[Tuple[int, int], _Stage] = {}
+_stages_lock = threading.Lock()
+
+
+def _stage(device: torch.device, slot: int) -> _Stage:
+    with _stages_lock:
+        st = _stages.get((device.index, slot))
+        if st is None:
+            st = _stages[(device.index, slot)] = _Stage(device)
+        return st
+
+
+def stage_shard(st: _Stage, part, rows: int) -> None:
+    """One shard's nine arrays ``part`` through slot ``st``: copied into
+    the pinned buffer, then, on the slot's stream, one asynchronous copy
+    in, the launch and one asynchronous copy of the mask out, each
+    between two of the slot's events."""
+    host, card, host_range, card_range = st.views(rows)
+    _copy_into(host, part)
+    e_in, e_launch, e_out, e_done = st.events
+    with torch.cuda.device(st.device), torch.cuda.stream(st.stream):
+        e_in.record(st.stream)
+        card_range.copy_(host_range, non_blocking=True)
+        e_launch.record(st.stream)
+        # verify_kernel launches on the current stream: this slot's.
+        out = verify_kernel(*card)
+        e_out.record(st.stream)
+        st.mask[:rows].copy_(out, non_blocking=True)
+        e_done.record(st.stream)
+
+
+def verify_sharded(arrays, devices, on_kernel=None, report=None) -> np.ndarray:
     """The nine prep arrays (numpy or tensors, B rows) verified as
     ``len(devices)`` equal contiguous shards, shard k on ``devices[k]``
-    (a device may repeat).  Every shard is launched on its card's current
-    stream before any result is awaited; CPU devices run the plain twin.
-    Returns the bool[B] mask, shards concatenated in order."""
+    (a device may repeat; its k-th use takes its k-th slot).  Every shard
+    on a card is enqueued (:func:`stage_shard`) before any is waited on;
+    a CPU shard is copied into a plain uint8 buffer laid out the same way
+    and runs the plain twin.  ``on_kernel(seconds)`` gets each card
+    shard's launch time (its events around the launch); ``report``, a
+    list, gets one record per card shard.  Returns the bool[B] mask,
+    shards concatenated in order."""
     shards = len(devices)
     B = int(arrays[0].shape[0])
     if shards < 1 or B % shards:
@@ -338,12 +494,46 @@ def verify_sharded(arrays, devices) -> np.ndarray:
             f"verify_sharded: {B} rows do not split into {shards} equal shards"
         )
     step = B // shards
-    masks = []
-    for k, device in enumerate(devices):
-        part = to_device([a[k * step : (k + 1) * step] for a in arrays],
-                         resolve_device(device))
-        masks.append(verify_kernel(*part))  # loads the card's constants once
-    return np.concatenate([m.cpu().numpy() for m in masks])
+    devices = [resolve_device(d) for d in devices]
+    host = [a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+            for a in arrays]
+    parts = [[a[k * step : (k + 1) * step] for a in host] for k in range(shards)]
+    slots, used = [], {}
+    for dev in devices:
+        slots.append(used.get(dev, 0))
+        used[dev] = slots[-1] + 1
+    staged = [
+        (k, _stage(dev, slot)) for k, (dev, slot) in enumerate(zip(devices, slots))
+        if dev.type == "cuda"
+    ]
+    masks: List[np.ndarray] = [None] * shards
+    with contextlib.ExitStack() as held:
+        # One lock order for every caller: by card, then slot.
+        for _, st in sorted(staged, key=lambda ks: (ks[1].device.index, slots[ks[0]])):
+            held.enter_context(st.lock)
+        for k, st in staged:
+            stage_shard(st, parts[k], step)
+        for k, dev in enumerate(devices):
+            if dev.type == "cpu":
+                views = stage_views(
+                    torch.empty(stage_layout(step)[1], dtype=torch.uint8), step)
+                _copy_into([v.numpy() for v in views], parts[k])
+                masks[k] = verify_kernel(*views).numpy()
+        for k, st in staged:
+            e_in, e_launch, e_out, e_done = st.events
+            e_done.synchronize()
+            masks[k] = st.mask[:step].numpy().copy()
+            if on_kernel is not None:
+                on_kernel(e_launch.elapsed_time(e_out) / 1000)
+            if report is not None:
+                report.append(dict(
+                    shard=k, device=str(st.device), slot=slots[k],
+                    stream=st.stream.cuda_stream, pinned=st.host.is_pinned(),
+                    copy_in_ms=e_in.elapsed_time(e_launch),
+                    kernel_ms=e_launch.elapsed_time(e_out),
+                    copy_out_ms=e_out.elapsed_time(e_done),
+                ))
+    return np.concatenate(masks)
 
 
 # ----------------------------------------------------------- host-side prep
@@ -458,7 +648,8 @@ def pad_size(n: int, floor: int = 16) -> int:
 
 def to_device(arrays, device) -> List[torch.Tensor]:
     """The nine prep arrays (numpy or tensors) as contiguous tensors on
-    ``device``."""
+    ``device``, for callers that want nine tensors; the verify path
+    stages them instead (:func:`verify_sharded`)."""
     return [
         (a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)))
         .to(device).contiguous()
@@ -469,33 +660,25 @@ def to_device(arrays, device) -> List[torch.Tensor]:
 def verify_batch_arrays(messages, keys, sigs, device=None,
                         on_kernel=None) -> np.ndarray:
     """Bool mask for a batch of (message, key, signature) triples: host
-    prep, one verifier call on ``device`` (None → the GPU), mask back.
-    With ``device`` None, NARWHAL_VERIFY_MESH on and several cards
-    visible, the padded batch (floor raised to 16 × cards) is split over
-    every card by :func:`verify_sharded`.  ``on_kernel(seconds)``, when
-    given, receives the single launch's time on the card (CUDA events
-    around it, so a wait for another process's kernels counts)."""
+    prep, then :func:`verify_sharded` with one shard on ``device`` (None
+    → the GPU): one staged copy in, one launch, the mask back.  With
+    ``device`` None, NARWHAL_VERIFY_MESH on and several cards visible,
+    the padded batch (floor raised to 16 × cards) is split into one shard
+    a card.  ``on_kernel(seconds)``, when given, receives each launch's
+    time on the card (CUDA events around it, so a wait for another
+    process's kernels counts)."""
     n = len(messages)
     if n == 0:
         return np.zeros(0, dtype=bool)
     n_dev = mesh_devices() if device is None else 1
-    dev = resolve_device(device)
+    if n_dev > 1:
+        devices = [torch.device("cuda", k) for k in range(n_dev)]
+    else:
+        devices = [resolve_device(device)]
     # The floor of 16 × cards makes every pad a multiple of the card count.
     pad = pad_size(n, floor=16 * n_dev)
     arrays = prepare_batch(messages, keys, sigs, pad)
-    if n_dev > 1:
-        devices = [torch.device("cuda", k) for k in range(n_dev)]
-        return verify_sharded(arrays, devices)[:n]
-    args = to_device(arrays, dev)
-    if on_kernel is None or dev.type != "cuda":
-        return verify_kernel(*args).cpu().numpy()[:n]
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    out = verify_kernel(*args)
-    stop.record()
-    mask = out.cpu().numpy()[:n]  # waits for the launch
-    on_kernel(start.elapsed_time(stop) / 1000)
-    return mask
+    return verify_sharded(arrays, devices, on_kernel)[:n]
 
 
 # The verify launch's own time on the card for each batch the backend
@@ -582,8 +765,9 @@ class CudaBackend:
         """Run the verifier once at every padded batch shape a live node
         will hit (up to ``max_claims``, default 64), so the first real
         burst pays no first-launch cost (the library build, the constant
-        upload) on the critical path.  Explicit ``shapes`` override.  The
-        launches count as warm-ups (:func:`warming`)."""
+        upload, the staging buffers' growth to the top pad) on the
+        critical path.  Explicit ``shapes`` override.  The launches count
+        as warm-ups (:func:`warming`)."""
         if shapes is None:
             top = 64 if max_claims is None else max(16, max_claims)
             shapes, pad = [], 16

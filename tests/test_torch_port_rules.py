@@ -26,6 +26,7 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "window_ab.py")
     yield os.path.join(ROOT, "sharded_ab.py")
+    yield os.path.join(ROOT, "verify_ab.py")
 
 
 def test_no_jax_or_reference_imports_in_the_source():
@@ -651,6 +652,13 @@ def test_window_ab_refuses_without_card(no_card, tmp_path):
 
 def test_sharded_ab_refuses_without_card(no_card, tmp_path):
     out = subprocess.run([sys.executable, os.path.join(ROOT, "sharded_ab.py"), ROOT],
+                         capture_output=True, text=True, timeout=240, cwd=str(tmp_path))
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_verify_ab_refuses_without_card(no_card, tmp_path):
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "verify_ab.py"), ROOT],
                          capture_output=True, text=True, timeout=240, cwd=str(tmp_path))
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr

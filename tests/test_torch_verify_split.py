@@ -1,6 +1,8 @@
 """The port's verifier batch split (``verify_sharded``, the counterpart of
 the reference's NARWHAL_VERIFY_MESH path) on the CPU: shards of the plain
-verifier, in order, must give the unsharded mask exactly.
+verifier, in order, must give the unsharded mask exactly.  The staging
+layout and the split against the reference's mesh path are in
+tests/test_torch_verify_staging.py.
 
 The unsharded plain mask is held against the JAX verifier in
 tests/test_torch_ed25519.py; nothing here calls the JAX verifier.  On the
@@ -39,7 +41,7 @@ def batch():
     return arrays, plain, (msgs, keys, sigs)
 
 
-@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
 def test_verify_sharded_equals_unsharded(batch, shards):
     arrays, plain, _ = batch
     got = TE.verify_sharded(arrays, ["cpu"] * shards)
@@ -91,9 +93,9 @@ def test_backend_splits_a_batch_under_the_mesh_flag(batch, monkeypatch, cards):
     split = TE.verify_sharded
     calls = []
 
-    def fake_sharded(arrays, devices):
+    def fake_sharded(arrays, devices, on_kernel=None, report=None):
         calls.append((int(arrays[0].shape[0]), [str(d) for d in devices]))
-        return split(arrays, ["cpu"] * len(devices))
+        return split(arrays, ["cpu"] * len(devices), on_kernel, report)
 
     monkeypatch.setattr(TE, "verify_sharded", fake_sharded)
     backend = TE.CudaBackend()
@@ -101,7 +103,7 @@ def test_backend_splits_a_batch_under_the_mesh_flag(batch, monkeypatch, cards):
     pad = TE.pad_size(ROWS, floor=16 * cards)
     assert calls == [(pad, [f"cuda:{k}" for k in range(cards)])]
     assert got == list(plain) == [i % 4 != 0 for i in range(ROWS)]
-    # A backend bound to a named device never splits.
+    # A backend bound to a named device never splits: one shard there.
     calls.clear()
     assert TE.CudaBackend("cpu").verify_batch_mask(*rows) == got
-    assert calls == []
+    assert calls == [(TE.pad_size(ROWS), ["cpu"])]
