@@ -1308,6 +1308,11 @@ class Consensus:
                         self._audit.commit(committed)
                     header = committed.header
                     self._m_batches.inc(len(header.payload))
+                    # commit: the certificate's Committed line, read once
+                    # before it is logged and so before the downstream
+                    # puts below, whose waits are backpressure, not the
+                    # commit a client waits for.
+                    now = time.time()
                     for digest in header.payload:
                         h = bytes(digest).hex()
                         # commit_trigger: the arrival that fired the
@@ -1315,6 +1320,7 @@ class Consensus:
                         # chain walk + flatten finished (walk cost).
                         self._mtrace.mark(h, "commit_trigger", ts=t0)
                         self._mtrace.mark(h, "walk_done", ts=t_walk)
+                        self._mtrace.mark(h, "commit", ts=now)
                     if self.benchmark and header.payload:
                         for digest in header.payload:
                             # Parsed by the benchmark log parser (reference
@@ -1329,14 +1335,6 @@ class Consensus:
                         log.info("Committed B%d(%r)", header.round, header.id)
                     await self.tx_primary.put(committed)
                     await self.tx_output.put(committed)
-                    if header.payload:
-                        # commit: delivered downstream (the remaining leg
-                        # is queue/backpressure, not protocol).
-                        now = time.time()
-                        for digest in header.payload:
-                            self._mtrace.mark(
-                                bytes(digest).hex(), "commit", ts=now
-                            )
             if self._c2c_on and len(self._insert_ts) > self._c2c_cap:
                 # Prune timestamps the DAG head has outrun — keyed on the
                 # HEAD round, not the committed frontier, so the map

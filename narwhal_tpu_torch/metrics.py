@@ -89,7 +89,8 @@ LATENCY_MS_BUCKETS: Tuple[float, ...] = tuple(
 # cert→commit span (77% of seal→commit in the r07 breakdown) so the bench
 # attributes where that time goes: protocol cadence (cert_inserted →
 # commit_trigger, rounds until the odd-round trigger), walk cost
-# (commit_trigger → walk_done), and delivery (walk_done → commit).
+# (commit_trigger → walk_done), and the commit's log up to the
+# certificate's Committed line (walk_done → commit).
 STAGES: Tuple[str, ...] = (
     "seal",               # worker: batch sealed (BatchMaker._seal)
     "quorum",             # worker: 2f+1 ACK stake reached (QuorumWaiter)
@@ -99,7 +100,7 @@ STAGES: Tuple[str, ...] = (
     "cert_inserted",      # consensus: containing certificate entered Tusk
     "commit_trigger",     # consensus: the arrival that fired the commit rule
     "walk_done",          # consensus: chain walk + causal flatten finished
-    "commit",             # consensus: committed certificate delivered
+    "commit",             # consensus: just before its Committed line
 )
 
 # Round-cadence sub-stages, in causal order.  The r09 cert→commit

@@ -369,10 +369,13 @@ def main(argv=None) -> int:
         loop_watchdog = install_loop_watchdog()
         # Sampling profiler (NARWHAL_PROFILE_HZ, default ~67 Hz): all-
         # thread stack samples folded into the `profile.*` series —
-        # general CPU attribution with no hand-placed probes.
+        # general CPU attribution with no hand-placed probes.  Armed only
+        # where a snapshot path or a metrics port exports them.
         from .. import profiling as _profiling
 
-        profiler_thread = _profiling.install_from_env()
+        profiler_thread = _profiling.install_from_env(
+            exported=bool(args.metrics_path or args.metrics_port)
+        )
         # Flight recorder: the registry-attached ring records landmarks
         # from everywhere; this process stamps its identity on it (dump
         # filenames + /debug/flight) and runs the per-tick delta sampler.

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Callable, List, Optional
 
 from .. import metrics
@@ -113,7 +114,11 @@ async def spawn_primary_node(
     if audit_path is None:
         audit_path = env_str("NARWHAL_CONSENSUS_AUDIT") or None
     loop = asyncio.get_running_loop()
+    # The boot's host phases, each a gauge in the registry beside the
+    # device phases (``node.boot.*``).
+    t = time.perf_counter()
     node.store = Store(store_path) if store is None else store
+    metrics.gauge("node.boot.store_seconds").set(time.perf_counter() - t)
 
     # If the TPU verify backend is selected, compile/cache-load the kernel
     # for the live burst shapes BEFORE joining the committee: the first
@@ -126,7 +131,11 @@ async def spawn_primary_node(
         # Warm every pad shape up to the worst-case burst so no live burst
         # hits XLA compile (sizing rationale in derive_max_claims).
         log.info("Warming up %s verify backend...", backend.name)
+        t = time.perf_counter()
         backend.warmup(max_claims=derive_max_claims(committee))
+        metrics.gauge("node.boot.verify_warmup_seconds").set(
+            time.perf_counter() - t
+        )
         log.info("Verify backend %s ready", backend.name)
 
     # One capacity for all three channels: the env knob (declared
@@ -174,7 +183,11 @@ async def spawn_primary_node(
     )
     if hasattr(consensus.tusk, "prewarm"):
         log.info("Warming up consensus kernel...")
+        t = time.perf_counter()
         consensus.tusk.prewarm()
+        metrics.gauge("node.boot.consensus_warmup_seconds").set(
+            time.perf_counter() - t
+        )
         log.info("Consensus kernel ready")
     node.consensus = consensus
 

@@ -25,6 +25,7 @@ import ctypes
 import glob
 import os
 import threading
+import time
 from typing import Dict, Optional
 
 import torch
@@ -60,6 +61,14 @@ _m_warmup_launches = {
 }
 _warming = threading.local()
 _capture = threading.local()
+
+# Two phases of a node's boot, in its process's registry: the kernel
+# library's load (its build too, on a checkout's first run) and the CUDA
+# context (:func:`open_context`), each timed where the process first
+# needs it.
+_m_boot_library = metrics.gauge("node.boot.library_seconds")
+_m_boot_context = metrics.gauge("node.boot.cuda_context_seconds")
+_contexts: Dict[int, float] = {}
 
 
 def reset_launches() -> None:
@@ -108,6 +117,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def open_context(device: torch.device) -> None:
+    """Make this process's CUDA context on ``device`` now, where its first
+    copy or launch would make it anyway, and time it
+    (``node.boot.cuda_context_seconds``); once a card."""
+    if device.index in _contexts:
+        return
+    t = time.perf_counter()
+    torch.cuda.synchronize(device)
+    _contexts[device.index] = time.perf_counter() - t
+    _m_boot_context.set(sum(_contexts.values()))
+
+
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -133,7 +154,9 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
+            t = time.perf_counter()
             _lib = ctypes.CDLL(build_library())
+            _m_boot_library.set(time.perf_counter() - t)
         return _lib
 
 

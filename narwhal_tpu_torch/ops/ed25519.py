@@ -42,6 +42,7 @@ from ..utils.env import env_flag
 from . import (
     check_launch,
     kernel_fn,
+    open_context,
     ptr,
     require,
     resolve_device,
@@ -266,6 +267,7 @@ def _load_consts(device: torch.device) -> None:
     with _consts_lock:
         if device.index in _consts_loaded:
             return
+        open_context(device)
         fn = kernel_fn("nt_ed25519_set_consts", _VP)
         consts = cuda_consts()
         with torch.cuda.device(device):

@@ -70,6 +70,7 @@ from . import (
     check_launch,
     count_launches,
     kernel_fn,
+    open_context,
     ptr,
     require,
     resolve_device,
@@ -870,6 +871,8 @@ class KernelTusk(Tusk):
                  device=None) -> None:
         super().__init__(committee, gc_depth, fixed_coin=fixed_coin)
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            open_context(self.device)
         w = 8
         while w < gc_depth + 2:
             w <<= 1

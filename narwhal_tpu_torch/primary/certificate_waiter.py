@@ -12,6 +12,7 @@ import asyncio
 import logging
 from typing import Dict, Tuple
 
+from .. import metrics
 from ..crypto import Digest
 from ..messages import Round
 from ..store import Store
@@ -37,6 +38,8 @@ class CertificateWaiter:
         self.rx_synchronizer = rx_synchronizer
         self.tx_core = tx_core
         self.pending: Dict[Digest, Tuple[Round, asyncio.Task]] = {}
+        # Certificates parked until their parents are stored.
+        self._m_parked = metrics.counter("primary.certificate_waiter.parked")
 
     async def run(self) -> None:
         try:
@@ -44,6 +47,7 @@ class CertificateWaiter:
                 certificate = await self.rx_synchronizer.get()
                 digest = certificate.digest()
                 if digest not in self.pending:
+                    self._m_parked.inc()
                     task = spawn(self._wait(certificate))
                     self.pending[digest] = (certificate.round, task)
                 self._gc()

@@ -15,6 +15,7 @@ import asyncio
 import logging
 from typing import Dict, List, Tuple
 
+from .. import metrics
 from ..config import Committee
 from ..crypto import Digest, PublicKey
 from ..messages import Round, encode_synchronize
@@ -59,6 +60,22 @@ class HeaderWaiter:
         self.pending: Dict[Digest, Tuple[Round, asyncio.Task]] = {}
         # missing certificate digest → (round, last request time)
         self.parent_requests: Dict[Digest, Tuple[Round, float]] = {}
+        # Where headers wait: those parked on missing batches and on
+        # missing parents, the parent digests the timer asks for again
+        # past sync_retry_delay, and how long each parked header waited
+        # until it resumed or was collected.
+        self._m_parked_batches = metrics.counter(
+            "primary.header_waiter.parked_batches"
+        )
+        self._m_parked_parents = metrics.counter(
+            "primary.header_waiter.parked_parents"
+        )
+        self._m_retried = metrics.counter(
+            "primary.header_waiter.retried_digests"
+        )
+        self._m_parked_seconds = metrics.histogram(
+            "primary.header_waiter.parked_seconds"
+        )
 
     async def run(self) -> None:
         timer = spawn(self._timer(), name="header-waiter-timer")
@@ -101,6 +118,7 @@ class HeaderWaiter:
                 msg_type="synchronize",
             )
         keys = [payload_key(d, w) for d, w in missing.items()]
+        self._m_parked_batches.inc()
         self._park(header, keys)
 
     async def _sync_parents(self, missing: List[Digest], header: Header) -> None:
@@ -120,14 +138,21 @@ class HeaderWaiter:
                 encode_certificates_request(to_request, self.name),
                 msg_type="cert_request",
             )
+        self._m_parked_parents.inc()
         self._park(header, [bytes(d) for d in missing])
 
     def _park(self, header: Header, keys: List[bytes]) -> None:
-        task = spawn(self._wait(header, keys))
+        task = spawn(self._wait(header, keys, loop_now()))
         self.pending[header.id] = (header.round, task)
 
-    async def _wait(self, header: Header, keys: List[bytes]) -> None:
-        await asyncio.gather(*(self.store.notify_read(k) for k in keys))
+    async def _wait(
+        self, header: Header, keys: List[bytes], parked_at: float
+    ) -> None:
+        try:
+            await asyncio.gather(*(self.store.notify_read(k) for k in keys))
+        finally:
+            # Resumed, or collected by the GC or at shutdown.
+            self._m_parked_seconds.observe(loop_now() - parked_at)
         self.pending.pop(header.id, None)
         for digest in header.parents:
             self.parent_requests.pop(digest, None)
@@ -158,6 +183,7 @@ class HeaderWaiter:
                     continue
                 overdue.append(d)
             if overdue:
+                self._m_retried.inc(len(overdue))
                 addresses = [
                     a.primary_to_primary
                     for _, a in self.committee.others_primaries(self.name)

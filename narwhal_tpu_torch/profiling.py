@@ -264,11 +264,13 @@ class SamplingProfiler:
         ]
 
 
-def install_from_env() -> Optional[SamplingProfiler]:
+def install_from_env(exported: bool = True) -> Optional[SamplingProfiler]:
     """Arm the profiler when ``NARWHAL_PROFILE_HZ`` > 0 *and* the metrics
     registry is live (a stubbed registry would sample into no-ops —
-    all cost, no data).  node/main.py calls this once per process."""
+    all cost, no data) *and* something exports the registry
+    (``exported``: a snapshot path or a metrics port; samples nobody
+    reads are all cost too).  node/main.py calls this once per process."""
     hz = env_float("NARWHAL_PROFILE_HZ")
-    if not hz or hz <= 0 or not metrics.registry().enabled:
+    if not exported or not hz or hz <= 0 or not metrics.registry().enabled:
         return None
     return SamplingProfiler(hz).start()

@@ -206,9 +206,11 @@ class BatchMaker:
         self._m_sealed.inc()
         self._m_tx_bytes.inc(sealed.tx_bytes)
         self._m_txs.inc(sealed.tx_count)
+        # ``samples``: the sample ids the batch holds (the ids the benchmark
+        # lines below print), so the stage trace joins a sample to its batch.
         self._trace.mark(
             bytes(digest).hex(), "seal", bytes=sealed.tx_bytes,
-            txs=sealed.tx_count,
+            txs=sealed.tx_count, samples=sealed.samples,
         )
         if self.benchmark:
             # Sample transactions carry byte0 == 0 and a u64 counter; the

@@ -283,6 +283,142 @@ COPY_EDITS = {
             "        print(f\"--root {root!r} does not contain narwhal_tpu_torch/\", file=sys.stderr)\n"
         )),
     ),
+    # The commit stage is stamped before the certificate's Committed line.
+    "metrics": (
+        ((
+            "# (commit_trigger → walk_done), and delivery (walk_done → commit).\n"
+        ), (
+            "# (commit_trigger → walk_done), and the commit's log up to the\n"
+            "# certificate's Committed line (walk_done → commit).\n"
+        )),
+        ((
+            "    \"commit\",             # consensus: committed certificate delivered\n"
+        ), (
+            "    \"commit\",             # consensus: just before its Committed line\n"
+        )),
+    ),
+    # The seal mark carries the batch's sample ids, so that the stage
+    # trace joins a benchmark sample to its batch.
+    "worker/batch_maker": (
+        ((
+            "        self._trace.mark(\n"
+            "            bytes(digest).hex(), \"seal\", bytes=sealed.tx_bytes,\n"
+            "            txs=sealed.tx_count,\n"
+            "        )\n"
+        ), (
+            "        # ``samples``: the sample ids the batch holds (the ids the benchmark\n"
+            "        # lines below print), so the stage trace joins a sample to its batch.\n"
+            "        self._trace.mark(\n"
+            "            bytes(digest).hex(), \"seal\", bytes=sealed.tx_bytes,\n"
+            "            txs=sealed.tx_count, samples=sealed.samples,\n"
+            "        )\n"
+        )),
+    ),
+    # Counters of the headers parked on missing batches and on missing
+    # parents and of the timer's re-requests, and a histogram of each
+    # parked header's wait.
+    "primary/header_waiter": (
+        ((
+            "        self.parent_requests: Dict[Digest, Tuple[Round, float]] = {}\n"
+        ), (
+            "        self.parent_requests: Dict[Digest, Tuple[Round, float]] = {}\n"
+            "        # Where headers wait: those parked on missing batches and on\n"
+            "        # missing parents, the parent digests the timer asks for again\n"
+            "        # past sync_retry_delay, and how long each parked header waited\n"
+            "        # until it resumed or was collected.\n"
+            "        self._m_parked_batches = metrics.counter(\n"
+            "            \"primary.header_waiter.parked_batches\"\n"
+            "        )\n"
+            "        self._m_parked_parents = metrics.counter(\n"
+            "            \"primary.header_waiter.parked_parents\"\n"
+            "        )\n"
+            "        self._m_retried = metrics.counter(\n"
+            "            \"primary.header_waiter.retried_digests\"\n"
+            "        )\n"
+            "        self._m_parked_seconds = metrics.histogram(\n"
+            "            \"primary.header_waiter.parked_seconds\"\n"
+            "        )\n"
+        )),
+        ((
+            "        keys = [payload_key(d, w) for d, w in missing.items()]\n"
+            "        self._park(header, keys)\n"
+        ), (
+            "        keys = [payload_key(d, w) for d, w in missing.items()]\n"
+            "        self._m_parked_batches.inc()\n"
+            "        self._park(header, keys)\n"
+        )),
+        ((
+            "        self._park(header, [bytes(d) for d in missing])\n"
+        ), (
+            "        self._m_parked_parents.inc()\n"
+            "        self._park(header, [bytes(d) for d in missing])\n"
+        )),
+        ((
+            "        task = spawn(self._wait(header, keys))\n"
+            "        self.pending[header.id] = (header.round, task)\n"
+            "\n"
+            "    async def _wait(self, header: Header, keys: List[bytes]) -> None:\n"
+            "        await asyncio.gather(*(self.store.notify_read(k) for k in keys))\n"
+        ), (
+            "        task = spawn(self._wait(header, keys, loop_now()))\n"
+            "        self.pending[header.id] = (header.round, task)\n"
+            "\n"
+            "    async def _wait(\n"
+            "        self, header: Header, keys: List[bytes], parked_at: float\n"
+            "    ) -> None:\n"
+            "        try:\n"
+            "            await asyncio.gather(*(self.store.notify_read(k) for k in keys))\n"
+            "        finally:\n"
+            "            # Resumed, or collected by the GC or at shutdown.\n"
+            "            self._m_parked_seconds.observe(loop_now() - parked_at)\n"
+        )),
+        ((
+            "            if overdue:\n"
+            "                addresses = [\n"
+        ), (
+            "            if overdue:\n"
+            "                self._m_retried.inc(len(overdue))\n"
+            "                addresses = [\n"
+        )),
+    ),
+    # A counter of the certificates parked until their parents are stored.
+    "primary/certificate_waiter": (
+        ((
+            "        self.pending: Dict[Digest, Tuple[Round, asyncio.Task]] = {}\n"
+        ), (
+            "        self.pending: Dict[Digest, Tuple[Round, asyncio.Task]] = {}\n"
+            "        # Certificates parked until their parents are stored.\n"
+            "        self._m_parked = metrics.counter(\"primary.certificate_waiter.parked\")\n"
+        )),
+        ((
+            "                if digest not in self.pending:\n"
+            "                    task = spawn(self._wait(certificate))\n"
+        ), (
+            "                if digest not in self.pending:\n"
+            "                    self._m_parked.inc()\n"
+            "                    task = spawn(self._wait(certificate))\n"
+        )),
+    ),
+    # The sampler is armed only where something exports the registry.
+    "profiling": (
+        ((
+            "def install_from_env() -> Optional[SamplingProfiler]:\n"
+            "    \"\"\"Arm the profiler when ``NARWHAL_PROFILE_HZ`` > 0 *and* the metrics\n"
+            "    registry is live (a stubbed registry would sample into no-ops —\n"
+            "    all cost, no data).  node/main.py calls this once per process.\"\"\"\n"
+            "    hz = env_float(\"NARWHAL_PROFILE_HZ\")\n"
+            "    if not hz or hz <= 0 or not metrics.registry().enabled:\n"
+        ), (
+            "def install_from_env(exported: bool = True) -> Optional[SamplingProfiler]:\n"
+            "    \"\"\"Arm the profiler when ``NARWHAL_PROFILE_HZ`` > 0 *and* the metrics\n"
+            "    registry is live (a stubbed registry would sample into no-ops —\n"
+            "    all cost, no data) *and* something exports the registry\n"
+            "    (``exported``: a snapshot path or a metrics port; samples nobody\n"
+            "    reads are all cost too).  node/main.py calls this once per process.\"\"\"\n"
+            "    hz = env_float(\"NARWHAL_PROFILE_HZ\")\n"
+            "    if not exported or not hz or hz <= 0 or not metrics.registry().enabled:\n"
+        )),
+    ),
     # Every entry point takes ``device``: spawn_primary_node passes it to
     # the Consensus.
     "node/node": (
@@ -309,6 +445,40 @@ COPY_EDITS = {
             "        commit_rule=commit_rule,\n"
             "        device=device,\n"
             "    )\n"
+        )),
+        # The boot's phases, each timed into a gauge.
+        ((
+            "    loop = asyncio.get_running_loop()\n"
+            "    node.store = Store(store_path) if store is None else store\n"
+        ), (
+            "    loop = asyncio.get_running_loop()\n"
+            "    # The boot's host phases, each a gauge in the registry beside the\n"
+            "    # device phases (``node.boot.*``).\n"
+            "    t = time.perf_counter()\n"
+            "    node.store = Store(store_path) if store is None else store\n"
+            "    metrics.gauge(\"node.boot.store_seconds\").set(time.perf_counter() - t)\n"
+        )),
+        ((
+            "        backend.warmup(max_claims=derive_max_claims(committee))\n"
+            "        log.info(\"Verify backend %s ready\", backend.name)\n"
+        ), (
+            "        t = time.perf_counter()\n"
+            "        backend.warmup(max_claims=derive_max_claims(committee))\n"
+            "        metrics.gauge(\"node.boot.verify_warmup_seconds\").set(\n"
+            "            time.perf_counter() - t\n"
+            "        )\n"
+            "        log.info(\"Verify backend %s ready\", backend.name)\n"
+        )),
+        ((
+            "        consensus.tusk.prewarm()\n"
+            "        log.info(\"Consensus kernel ready\")\n"
+        ), (
+            "        t = time.perf_counter()\n"
+            "        consensus.tusk.prewarm()\n"
+            "        metrics.gauge(\"node.boot.consensus_warmup_seconds\").set(\n"
+            "            time.perf_counter() - t\n"
+            "        )\n"
+            "        log.info(\"Consensus kernel ready\")\n"
         )),
     ),
     # The CLI's ``--device``, the port's backend names (``cuda``, with the
@@ -451,6 +621,21 @@ COPY_EDITS = {
             "                device=args.device,\n"
             "            )\n"
             "        else:\n"
+        )),
+        # The sampling profiler only with a snapshot path or a metrics port.
+        ((
+            "        # general CPU attribution with no hand-placed probes.\n"
+            "        from .. import profiling as _profiling\n"
+            "\n"
+            "        profiler_thread = _profiling.install_from_env()\n"
+        ), (
+            "        # general CPU attribution with no hand-placed probes.  Armed only\n"
+            "        # where a snapshot path or a metrics port exports them.\n"
+            "        from .. import profiling as _profiling\n"
+            "\n"
+            "        profiler_thread = _profiling.install_from_env(\n"
+            "            exported=bool(args.metrics_path or args.metrics_port)\n"
+            "        )\n"
         )),
     ),
     # The sim's queue section joins through the reference's bench package
