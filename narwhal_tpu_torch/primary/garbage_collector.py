@@ -2,7 +2,9 @@
 
 Reference primary/src/garbage_collector.rs (72 LoC): consume committed
 certificates from consensus, bump the shared consensus round, and broadcast
-Cleanup(round) to our own workers.
+Cleanup(round) to our own workers.  Each committed certificate of our own
+also goes to the Proposer (``own_committed``), which re-proposes the
+batches of our headers that can no longer commit.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ class GarbageCollector:
         committee: Committee,
         consensus_round: AtomicRound,
         rx_consensus: asyncio.Queue,  # committed certificates
+        proposer,  # Proposer: told of each of our certificates committed
     ) -> None:
+        self.name = name
+        self.proposer = proposer
         self.consensus_round = consensus_round
         self.rx_consensus = rx_consensus
         self.sender = SimpleSender()
@@ -39,6 +44,8 @@ class GarbageCollector:
         last_committed_round = 0
         while True:
             certificate = await self.rx_consensus.get()
+            if certificate.origin == self.name:
+                self.proposer.own_committed(certificate.round)
             round = certificate.round
             if round > last_committed_round:
                 last_committed_round = round

@@ -207,6 +207,7 @@ class Primary:
             benchmark=benchmark,
             min_header_delay_ms=parameters.min_header_delay,
             header_linger_ms=parameters.header_linger,
+            gc_depth=parameters.gc_depth,
         )
         core = core_cls(
             *extra,
@@ -233,7 +234,7 @@ class Primary:
             ),
         )
         garbage_collector = GarbageCollector(
-            name, committee, consensus_round, rx_consensus
+            name, committee, consensus_round, rx_consensus, proposer
         )
         payload_receiver = PayloadReceiver(store, rx_others_digests)
         header_waiter = HeaderWaiter(

@@ -33,13 +33,27 @@ half):
   with probability ≈ 2/3 and slot support hovers at the quorum
   borderline.  max_header_delay still caps the round; 0 disables the
   window and keeps prior behavior bit-for-bit.
+
+And one that is always on:
+
+- **re-proposal of dead payloads** — the proposer remembers the payload
+  of each header it mints, by round, for ``gc_depth`` rounds.  Tusk
+  skips a certificate of an authority at or below that authority's last
+  committed round, so once consensus commits one of this primary's
+  certificates at round r', none of its certificates below r' can ever
+  commit: a header of ours below r' whose certificate has not come back
+  committed (orphaned, or never certified) has lost its batches.
+  :meth:`own_committed` puts their digests back into the next header,
+  once, so each batch commits exactly once; headers stay as they were
+  wherever no header of ours dies.  The memory is the process's own: a
+  restarted primary does not re-propose what it lost before the restart.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..utils.env import env_flag
 
@@ -69,6 +83,7 @@ class Proposer:
         benchmark: bool = False,
         min_header_delay_ms: int = 0,
         header_linger_ms: int = 0,
+        gc_depth: int = 50,
     ) -> None:
         self.name = name
         self.signature_service = signature_service
@@ -112,6 +127,14 @@ class Proposer:
         # Armed by _advance when header_linger > 0; the fast mint paths
         # hold until it passes so late parents can still be cited.
         self._linger_deadline = 0.0
+        # The payloads of our own headers by round, until consensus
+        # commits their certificate, a later one of ours, or gc_depth
+        # rounds pass (own_committed).
+        self.gc_depth = gc_depth
+        self._proposed: Dict[Round, Dict[Digest, WorkerId]] = {}
+        self._m_reproposed = metrics.counter(
+            "primary.proposer.reproposed_batches"
+        )
         self._m_headers = metrics.counter("primary.headers_proposed")
         self._m_late_parents = metrics.counter("primary.late_parents_cited")
         self._m_payload_digests = metrics.counter("primary.payload_digests")
@@ -155,6 +178,21 @@ class Proposer:
         if _TRACE:
             log.info("TRACE late parent cited %r for round %d", digest, self.round)
 
+    def own_committed(self, round: Round) -> None:
+        """Consensus committed our certificate of ``round``.  Tusk commits
+        an authority's certificates in round order and skips any at or
+        below its last committed round, so the payload of each header of
+        ours below ``round`` that has not come back committed can never
+        commit: its digests go into the next header.  Everything at or
+        below ``round`` is forgotten, so a payload goes back once."""
+        for r in sorted(r for r in self._proposed if r <= round):
+            payload = self._proposed.pop(r)
+            if r == round:
+                continue
+            self.digests.extend(payload.items())
+            self._m_reproposed.inc(len(payload))
+            metrics.flight_event("repropose", round=r, batches=len(payload))
+
     def _advance(self, parents: List[Digest], round: Round) -> bool:
         """Apply a parent quorum for ``round``; returns True if the round
         advanced.  Observes ``round_advance_seconds`` exactly once per
@@ -183,6 +221,11 @@ class Proposer:
             self.name, self.round, payload, parents, self.signature_service
         )
         log.debug("Created %r", header)
+        if payload:
+            self._proposed[header.round] = payload
+            for r in [r for r in self._proposed
+                      if r + self.gc_depth < header.round]:
+                del self._proposed[r]
         self._m_headers.inc()
         self._m_payload_digests.inc(len(payload))
         self._rtrace.mark(str(header.round), "header_proposed")

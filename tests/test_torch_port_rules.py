@@ -399,6 +399,127 @@ COPY_EDITS = {
             "                    task = spawn(self._wait(certificate))\n"
         )),
     ),
+    # The proposer remembers its headers' payloads for gc_depth rounds and
+    # re-proposes those of its headers that can no longer commit, with a
+    # counter and a flight event of each.
+    "primary/proposer": (
+        ((
+            "  window and keeps prior behavior bit-for-bit.\n"
+            "\"\"\"\n"
+        ), (
+            "  window and keeps prior behavior bit-for-bit.\n"
+            "\n"
+            "And one that is always on:\n"
+            "\n"
+            "- **re-proposal of dead payloads** — the proposer remembers the payload\n"
+            "  of each header it mints, by round, for ``gc_depth`` rounds.  Tusk\n"
+            "  skips a certificate of an authority at or below that authority's last\n"
+            "  committed round, so once consensus commits one of this primary's\n"
+            "  certificates at round r', none of its certificates below r' can ever\n"
+            "  commit: a header of ours below r' whose certificate has not come back\n"
+            "  committed (orphaned, or never certified) has lost its batches.\n"
+            "  :meth:`own_committed` puts their digests back into the next header,\n"
+            "  once, so each batch commits exactly once; headers stay as they were\n"
+            "  wherever no header of ours dies.  The memory is the process's own: a\n"
+            "  restarted primary does not re-propose what it lost before the restart.\n"
+            "\"\"\"\n"
+        )),
+        ((
+            "        header_linger_ms: int = 0,\n"
+            "    ) -> None:\n"
+        ), (
+            "        header_linger_ms: int = 0,\n"
+            "        gc_depth: int = 50,\n"
+            "    ) -> None:\n"
+        )),
+        ((
+            "        self._linger_deadline = 0.0\n"
+        ), (
+            "        self._linger_deadline = 0.0\n"
+            "        # The payloads of our own headers by round, until consensus\n"
+            "        # commits their certificate, a later one of ours, or gc_depth\n"
+            "        # rounds pass (own_committed).\n"
+            "        self.gc_depth = gc_depth\n"
+            "        self._proposed: Dict[Round, Dict[Digest, WorkerId]] = {}\n"
+            "        self._m_reproposed = metrics.counter(\n"
+            "            \"primary.proposer.reproposed_batches\"\n"
+            "        )\n"
+        )),
+        ((
+            "    def _advance(self, parents: List[Digest], round: Round) -> bool:\n"
+        ), (
+            "    def own_committed(self, round: Round) -> None:\n"
+            "        \"\"\"Consensus committed our certificate of ``round``.  Tusk commits\n"
+            "        an authority's certificates in round order and skips any at or\n"
+            "        below its last committed round, so the payload of each header of\n"
+            "        ours below ``round`` that has not come back committed can never\n"
+            "        commit: its digests go into the next header.  Everything at or\n"
+            "        below ``round`` is forgotten, so a payload goes back once.\"\"\"\n"
+            "        for r in sorted(r for r in self._proposed if r <= round):\n"
+            "            payload = self._proposed.pop(r)\n"
+            "            if r == round:\n"
+            "                continue\n"
+            "            self.digests.extend(payload.items())\n"
+            "            self._m_reproposed.inc(len(payload))\n"
+            "            metrics.flight_event(\"repropose\", round=r, batches=len(payload))\n"
+            "\n"
+            "    def _advance(self, parents: List[Digest], round: Round) -> bool:\n"
+        )),
+        ((
+            "        log.debug(\"Created %r\", header)\n"
+        ), (
+            "        log.debug(\"Created %r\", header)\n"
+            "        if payload:\n"
+            "            self._proposed[header.round] = payload\n"
+            "            for r in [r for r in self._proposed\n"
+            "                      if r + self.gc_depth < header.round]:\n"
+            "                del self._proposed[r]\n"
+        )),
+    ),
+    # Each committed certificate of our own goes to the proposer.
+    "primary/garbage_collector": (
+        ((
+            "Cleanup(round) to our own workers.\n"
+        ), (
+            "Cleanup(round) to our own workers.  Each committed certificate of our own\n"
+            "also goes to the Proposer (``own_committed``), which re-proposes the\n"
+            "batches of our headers that can no longer commit.\n"
+        )),
+        ((
+            "        rx_consensus: asyncio.Queue,  # committed certificates\n"
+            "    ) -> None:\n"
+        ), (
+            "        rx_consensus: asyncio.Queue,  # committed certificates\n"
+            "        proposer,  # Proposer: told of each of our certificates committed\n"
+            "    ) -> None:\n"
+            "        self.name = name\n"
+            "        self.proposer = proposer\n"
+        )),
+        ((
+            "            certificate = await self.rx_consensus.get()\n"
+        ), (
+            "            certificate = await self.rx_consensus.get()\n"
+            "            if certificate.origin == self.name:\n"
+            "                self.proposer.own_committed(certificate.round)\n"
+        )),
+    ),
+    # The primary wires its proposer to the garbage collector, with the
+    # committee's gc_depth.
+    "primary/primary": (
+        ((
+            "            header_linger_ms=parameters.header_linger,\n"
+            "        )\n"
+        ), (
+            "            header_linger_ms=parameters.header_linger,\n"
+            "            gc_depth=parameters.gc_depth,\n"
+            "        )\n"
+        )),
+        ((
+            "            name, committee, consensus_round, rx_consensus\n"
+        ), (
+            "            name, committee, consensus_round, rx_consensus, proposer\n"
+        )),
+    ),
     # The sampler is armed only where something exports the registry.
     "profiling": (
         ((
