@@ -1,6 +1,13 @@
 """The comparison that decides ``correct``: everything worked out again
 from the stores and logs a run left, in plain Python.
 
+The judged set is the live set: ``RunFiles`` lists the stores, logs and
+exit codes of the nodes that ran, and none of an authority crashed from
+the start (the configuration's ``faults``), which left none.  ``keys`` is
+the whole committee all the same, so every quorum below (2f+1, with
+``batch_unheld``'s) is held against all ``n`` authorities, as the live
+nodes themselves count it.
+
 Each number below is compared with its limit (``LIMITS``: 0 for every
 exact comparison; PERF.md gives the readings each was set from):
 
@@ -88,7 +95,8 @@ def sample_tx(seed: int, sid: int, size: int) -> bytes:
 
 @dataclass
 class RunFiles:
-    """What the judge reads: the committee, and each node's store and log."""
+    """What the judge reads: the whole committee's keys, and each live
+    node's store, log and exit code."""
 
     keys: List[bytes]
     gc_depth: int

@@ -9,15 +9,26 @@ From the root of a checkout.  The run:
 2. picks free loopback ports (a run whose ports are taken fails here,
    before any node starts) and a fresh work directory under ``TMPDIR``;
 3. writes the committee's key files from the configuration's fixed salt,
-   its committee and parameters;
+   its committee and parameters: every authority, the crashed ones too,
+   so every node counts all ``n`` and a quorum is 2f+1 of the whole
+   stake;
 4. through :class:`~portbench.supervisor.Supervisor`: the card's sampler
    (``nvidia-smi``), on the first run of a checkout only the port's
    ``node prewarm`` (builds the kernel library into
    ``build/narwhal_tpu_torch``, so that the primaries load it and do not
    race to build it), a primary (``--crypto-backend cuda
-   --experimental-consensus-kernel``) and a worker an authority, each
-   ``--benchmark`` and, traced, ``--metrics-path``; then the load
-   generator once every node has logged its boot lines;
+   --experimental-consensus-kernel``) and a worker for each live
+   authority, each ``--benchmark`` and, traced, ``--metrics-path``; then
+   the load generator once every live node has logged its boot lines,
+   the rate split evenly over the live workers.  The configuration's
+   ``faults`` authorities are crashed from the start (``crashed``): the
+   first ``faults`` in sorted public-key order, which is Tusk's leader
+   order, so a crash always takes out a leader (at ``faults`` 1 the dead
+   authority leads each even round r with r mod n = 0: every tenth round
+   in a committee of 10).  Their processes never start and their ports
+   stay unbound, as for a machine that is down; the run's notes name
+   them.  Every later step (the join, the snapshots, the judge's stores
+   and logs) reads only the live nodes;
 5. ``setup_s`` ends at the window's first due send; after the window the
    load goes on until every sample due in the window has committed (at
    most the traffic's ``drain_cap_s``);
@@ -160,17 +171,41 @@ def key_seed(salt: str, i: int) -> bytes:
     return hashlib.sha256(f"portbench/{salt}/{i}".encode()).digest()
 
 
-def write_deployment(workdir: str, cfg: dict, ports: List[int]) -> List[bytes]:
+def public_keys(cfg: dict) -> List[bytes]:
+    """The committee's public keys in authority order, from the
+    configuration's fixed salt."""
+    return [ed25519.public_key(key_seed(cfg["key_salt"], i))
+            for i in range(cfg["authorities"])]
+
+
+def crashed(keys: List[bytes], faults: int) -> List[int]:
+    """The authorities that never boot: the first ``faults`` in sorted
+    public-key order, which is Tusk's leader order (an even round r's
+    leader is ``sorted(keys)[r % n]``), so a crash always takes out a
+    leader.  Refuses more than f = (n - 1) // 3, which leaves no quorum."""
+    f = (len(keys) - 1) // 3
+    if not 0 <= faults <= f:
+        raise RunError(f"faults {faults}: a committee of {len(keys)} tolerates 0 to {f}")
+    return sorted(sorted(range(len(keys)), key=keys.__getitem__)[:faults])
+
+
+def per_worker_rate(rate: int, bursts_per_s: int, workers: int) -> int:
+    """The rate each of ``workers`` live workers is offered: ``rate``
+    split evenly, in whole bursts on every one."""
+    if rate % (bursts_per_s * workers):
+        raise RunError(f"rate {rate} is not {bursts_per_s} whole bursts a second "
+                       f"on every live worker")
+    return rate // workers
+
+
+def write_deployment(workdir: str, cfg: dict, ports: List[int]) -> None:
     """Key files, ``committee.json`` and ``parameters.json`` in
-    ``workdir``; returns the public keys in authority order."""
+    ``workdir``, for every authority, crashed or not."""
     b64 = lambda b: base64.b64encode(b).decode()  # noqa: E731
-    authorities, keys = {}, []
-    for i in range(cfg["authorities"]):
-        seed = key_seed(cfg["key_salt"], i)
-        pub = ed25519.public_key(seed)
-        keys.append(pub)
+    authorities = {}
+    for i, pub in enumerate(public_keys(cfg)):
         with open(os.path.join(workdir, f"key-{i}.json"), "w") as f:
-            json.dump({"name": b64(pub), "secret": b64(seed)}, f)
+            json.dump({"name": b64(pub), "secret": b64(key_seed(cfg["key_salt"], i))}, f)
         a = [f"127.0.0.1:{p}" for p in ports[5 * i:5 * i + 5]]
         authorities[b64(pub)] = {
             "stake": cfg["stake"],
@@ -182,7 +217,6 @@ def write_deployment(workdir: str, cfg: dict, ports: List[int]) -> List[bytes]:
         json.dump({"authorities": authorities}, f, indent=1)
     with open(os.path.join(workdir, "parameters.json"), "w") as f:
         json.dump(cfg["parameters"], f, indent=1)
-    return keys
 
 
 def child_env(root: str) -> dict:
@@ -228,12 +262,17 @@ class Run:
         self.cfg = cell.config
         self.n = self.cfg["authorities"]
         self.bursts = cell.traffic["bursts_per_s"]
-        if self.rate % (self.bursts * self.n * self.cfg["workers_per_authority"]):
-            raise RunError(f"rate {self.rate} is not {self.bursts} whole bursts a second "
-                           f"on every worker")
+        self.keys = public_keys(self.cfg)
+        self.crashed = crashed(self.keys, self.cfg["faults"])
+        self.live = [i for i in range(self.n) if i not in self.crashed]
+        self.workers = len(self.live) * self.cfg["workers_per_authority"]
+        self.per_worker = per_worker_rate(self.rate, self.bursts, self.workers)
         self.sup: Optional[Supervisor] = None
         self.workdir: Optional[str] = None
-        self.notes: Dict[str, object] = {}
+        order = sorted(self.keys)
+        self.notes: Dict[str, object] = {"crashed": [
+            {"authority": i, "sorted_position": order.index(self.keys[i])}
+            for i in self.crashed]}
 
     def say(self, msg: str) -> None:
         print(f"portbench: {msg}", file=sys.stderr, flush=True)
@@ -289,8 +328,7 @@ class Run:
         busy = taken(ports)
         if busy:
             raise RunError(f"ports taken: {busy}")
-        keys = write_deployment(self.workdir, self.cfg, ports)
-        self.keys = keys
+        write_deployment(self.workdir, self.cfg, ports)
         if self.device != "cpu":
             sup.start("sampler", ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu,memory.used",
                                   "--format=csv,noheader,nounits", f"--loop-ms={SAMPLER_MS}"],
@@ -311,7 +349,7 @@ class Run:
                 raise RunError(f"ports taken before the nodes started: {busy}")
         boot = CPU_PRIMARY_BOOT if self.device == "cpu" else CARD_PRIMARY_BOOT
         want = {}
-        for i in range(self.n):
+        for i in self.live:
             sup.start(f"primary-{i}", self.run_args(i, "primary"),
                       self.path(f"primary-{i}.log"), env=env, cwd=self.cell.root)
             sup.start(f"worker-{i}", self.run_args(i, "worker"),
@@ -319,10 +357,9 @@ class Run:
             want[f"primary-{i}"], want[f"worker-{i}"] = boot, (BOOTED,)
         boot_s = self._wait_boot(want)
 
-        per_worker = self.rate // (self.cfg["workers_per_authority"] * self.n)
         plan = dict(
-            targets=[f"127.0.0.1:{ports[5 * i + 2]}" for i in range(self.n)],
-            rate=per_worker, bursts_per_s=self.bursts, tx_size=self.cfg["tx_size"],
+            targets=[f"127.0.0.1:{ports[5 * i + 2]}" for i in self.live],
+            rate=self.per_worker, bursts_per_s=self.bursts, tx_size=self.cfg["tx_size"],
             seed=self.seed,
             warmup_s=self.cell.traffic["warmup_s"], window_s=self.seconds,
             drain_cap_s=self.cell.traffic["drain_cap_s"],
@@ -341,8 +378,8 @@ class Run:
                 due[(w << 32) | k] = start["t0"] + phase + k / self.bursts
                 k += 1
 
-        join = measure.Join([self.path(f"worker-{i}.log") for i in range(self.n)],
-                            [self.path(f"primary-{i}.log") for i in range(self.n)])
+        join = measure.Join([self.path(f"worker-{i}.log") for i in self.live],
+                            [self.path(f"primary-{i}.log") for i in self.live])
         snaps0 = self._snapshots_at(window[0]) if self.trace else {}
         snaps1 = self._snapshots_at(window[1]) if self.trace else {}
         self._sleep_until(window[1], ("loadgen",))
@@ -360,7 +397,7 @@ class Run:
         if codes["loadgen"] != 0:
             raise RunError(f"load generator exited {codes['loadgen']}: {self._tail('loadgen')}")
         t = time.time()
-        nodes = [f"{r}-{i}" for i in range(self.n) for r in ("primary", "worker")]
+        nodes = [f"{r}-{i}" for i in self.live for r in ("primary", "worker")]
         codes = sup.stop(nodes, signal.SIGTERM, NODE_GRACE_S)
         self.notes["node_stop_s"] = time.time() - t
         join.update()
@@ -439,7 +476,7 @@ class Run:
 
     def _read_snapshots(self) -> Dict[str, dict]:
         out = {}
-        for i in range(self.n):
+        for i in self.live:
             for role in ("primary", "worker"):
                 try:
                     with open(self.path(f"metrics-{role}-{i}.json")) as f:
@@ -453,7 +490,7 @@ class Run:
         self._sleep_until(t, ("loadgen",))
         got: Dict[str, dict] = {}
         end = t + 5.0
-        while len(got) < 2 * self.n and time.time() < end:
+        while len(got) < 2 * len(self.live) and time.time() < end:
             for name, snap in self._read_snapshots().items():
                 if name not in got and snap.get("ts", 0) >= t:
                     got[name] = snap
@@ -476,16 +513,15 @@ class Run:
             files = judge_mod.RunFiles(
                 keys=self.keys, gc_depth=cfg["parameters"]["gc_depth"],
                 tx_size=cfg["tx_size"], seed=self.seed,
-                primary_stores=[self.path(f"db-primary-{i}", "store.log") for i in range(self.n)],
-                primary_logs=[self.path(f"primary-{i}.log") for i in range(self.n)],
-                worker_stores=[self.path(f"db-worker-{i}", "store.log") for i in range(self.n)],
-                worker_logs=[self.path(f"worker-{i}.log") for i in range(self.n)],
+                primary_stores=[self.path(f"db-primary-{i}", "store.log") for i in self.live],
+                primary_logs=[self.path(f"primary-{i}.log") for i in self.live],
+                worker_stores=[self.path(f"db-worker-{i}", "store.log") for i in self.live],
+                worker_logs=[self.path(f"worker-{i}.log") for i in self.live],
                 exit_codes=raw["codes"], window=window, window_samples=sorted(raw["due"]),
                 committed_txs=e2e["committed_txs"])
             self.notes["bytes_written"] = measure.tree_bytes(self.workdir)
             self.notes["bytes_reckoned"] = measure.disk_bytes(
-                self.n * self.cfg["workers_per_authority"], self.rate, cfg["tx_size"],
-                self.notes["load_s"])
+                self.workers, self.rate, cfg["tx_size"], self.notes["load_s"])
             self.say(f"wrote {self.notes['bytes_written']} bytes in the work directory "
                      f"(batches reckoned: {self.notes['bytes_reckoned']:.0f})")
             t = time.time()
