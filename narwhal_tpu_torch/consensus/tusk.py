@@ -121,6 +121,22 @@ def leader_slots(
     return [head] + rest[: k - 1]
 
 
+def leader_tally(
+    previous_round: Round, chain: List[Certificate]
+) -> Tuple[int, int]:
+    """(leaders committed, leader rounds passed over) by one commit.
+
+    ``chain`` is the linked-leader chain ``order_leaders`` returns, the
+    anchor first; ``previous_round`` is the last committed round before
+    the commit.  A round passed over is an even round strictly between the
+    two that has no leader in the chain: its leader never arrived, or
+    arrived with no link to a later leader, and will never commit."""
+    rounds = {c.round for c in chain}
+    first = previous_round + 2 - previous_round % 2
+    skipped = sum(1 for r in range(first, chain[0].round, 2) if r not in rounds)
+    return len(chain), skipped
+
+
 # Checkpoint cert-sig scheme trailer: 4-byte tag + scheme index,
 # appended after the frontier entries.  A frontier is only meaningful
 # next to a store the running scheme can replay (the boot-time
@@ -379,6 +395,8 @@ class Tusk:
         self.support_observer: Optional[
             Callable[[Round, int, int, PublicKey], None]
         ] = None
+        # ``leader_tally`` of the last commit, which Consensus counts.
+        self.last_leaders: Tuple[int, int] = (0, 0)
 
     def leader(self, round: Round, dag: Dag) -> Optional[Tuple[Digest, Certificate]]:
         """Round-robin leader (a common coin in the full protocol —
@@ -482,7 +500,9 @@ class Tusk:
         # sweep runs ONCE for the whole burst.
         log.debug("Leader %r has enough support", leader)
         sequence: List[Certificate] = []
-        for past_leader in reversed(self.order_leaders(leader)):
+        chain = self.order_leaders(leader)
+        self.last_leaders = leader_tally(state.last_committed_round, chain)
+        for past_leader in reversed(chain):
             for x in self.order_dag(past_leader):
                 state.note_committed(x)
                 sequence.append(x)
@@ -668,7 +688,9 @@ class LowDepthTusk(Tusk):
 
         log.debug("Leader %r has direct 2f+1 support", leader)
         sequence: List[Certificate] = []
-        for past_leader in reversed(self.order_leaders(leader)):
+        chain = self.order_leaders(leader)
+        self.last_leaders = leader_tally(state.last_committed_round, chain)
+        for past_leader in reversed(chain):
             for x in self.order_dag(past_leader):
                 state.note_committed(x)
                 sequence.append(x)
@@ -950,7 +972,9 @@ class MultiLeaderTusk(Tusk):
             "Slot %d leader %r has direct 2f+1 support", slot, leader
         )
         sequence: List[Certificate] = []
-        for past_leader in reversed(self.order_leaders(leader)):
+        chain = self.order_leaders(leader)
+        self.last_leaders = leader_tally(state.last_committed_round, chain)
+        for past_leader in reversed(chain):
             for x in self.order_dag(past_leader):
                 state.note_committed(x)
                 sequence.append(x)
@@ -1040,6 +1064,11 @@ class Consensus:
         self._m_certs_in = metrics.counter("consensus.certificates_in")
         self._m_commits = metrics.counter("consensus.committed_certificates")
         self._m_batches = metrics.counter("consensus.committed_batch_digests")
+        # Each commit's linked-leader chain (``leader_tally``): the leaders
+        # it commits, and the even rounds it passes over, whose leaders
+        # are absent or unlinked and never commit.
+        self._m_leaders = metrics.counter("consensus.leaders_committed")
+        self._m_skipped = metrics.counter("consensus.leaders_skipped")
         self._m_commit_batch = metrics.histogram(
             "consensus.commit_batch_size", metrics.COUNT_BUCKETS
         )
@@ -1261,6 +1290,9 @@ class Consensus:
                 if sequence:
                     committed_any = True
                     self._m_commits.inc(len(sequence))
+                    leaders, skipped = self.tusk.last_leaders
+                    self._m_leaders.inc(leaders)
+                    self._m_skipped.inc(skipped)
                     self._m_commit_batch.observe(len(sequence))
                     self._m_walk.observe(t_walk - t0)
                     # Flight-ring landmark: one event per commit burst
